@@ -10,9 +10,10 @@ knoxdb_tpu/encode/schemes.py, with the same names and outputs.
 - DICT     codes bitplane-packed + sorted unique values
 - ALP      floats as decimal-scaled ints (encode/alp.py), packed as BITPACK
 
-The device reads the planes as they are (exec/device.py); the device
-decodes of the reference wait for a later slice (ROADMAP.md queue 1
-item 2).
+The device decodes of plane-packed values (`decode_bitplanes_pair`,
+`decode_bitplanes_u32`) run on int32-carried u32 words (ops/words.py),
+widths 0-64; the DELTA/RLE decodes, `key_u64_to_limbs` and wide decodes
+wait for a later slice (ROADMAP.md queue 1 item 2).
 """
 
 from __future__ import annotations
@@ -21,6 +22,9 @@ import enum
 from dataclasses import dataclass
 
 import numpy as np
+import torch
+
+from ..ops import words as WD
 
 
 class Scheme(enum.IntEnum):
@@ -192,3 +196,78 @@ def encode_dict(codes: np.ndarray, unique_limbs: np.ndarray, n: int,
         vals[:, card:] = unique_limbs[:, -1:]
     return EncodedPack(Scheme.DICT, n, nlimbs, width=width, planes=planes,
                        values=vals, k=k, card=card, dict_keys=dict_keys)
+
+
+# ---------------------------------------------------------------- decode ---
+# Batched device decodes on int32-carried u32 words; inputs carry a pack
+# axis P.
+
+def _expand_bits(words: torch.Tensor) -> torch.Tensor:
+    """int32[..., W] -> int32[..., W*32] of 0/1 (bit k of word w -> row
+    w*32+k)."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    bits = (words[..., None] >> shifts) & 1
+    return bits.reshape(*words.shape[:-1], words.shape[-1] * 32)
+
+
+_T32_MASKS = (0x0000FFFF, 0x00FF00FF, 0x0F0F0F0F, 0x33333333, 0x55555555)
+
+
+def _bit_transpose32_pm(x: torch.Tensor) -> torch.Tensor:
+    """int32[32, ..., W] -> int32[32, ..., W]: Hacker's Delight transpose32
+    of each 32x32 bit block whose 32 words lie on the leading axis (W
+    vectorizes); 5 masked exchange passes of whole-array ops."""
+    j = 16
+    for m in _T32_MASKS:
+        sh = x.shape
+        xr = x.reshape(32 // (2 * j), 2, j, *sh[1:])
+        a = xr[:, 0]
+        b = xr[:, 1]
+        t = (a ^ WD.lsr(b, j)) & m
+        x = torch.stack([a ^ t, b ^ (t << j)], dim=1).reshape(sh)
+        j //= 2
+    return x
+
+
+def decode_bitplanes_pair(planes: torch.Tensor, width: int):
+    """int32[max(w,1), P, N32] plane-major -> (lo int32[P, N], hi int32[P,
+    N]), the packed-domain value halves, by 32x32 bit-matrix transpose:
+    plane word b of rows 32k..32k+31 is row b of a bit matrix whose
+    transpose's row i is the value word of row 32k+i. Widths 0-64. The
+    pair is also the port's form of the reference's decode_bitplanes_u64:
+    torch has no uint64 to bitcast the halves into."""
+    if not 0 <= width <= 64:
+        raise ValueError(f"decode_bitplanes_pair: width {width} outside "
+                         f"[0, 64] (wide decodes: ROADMAP.md queue 1 item 2)")
+    _w, P, n32 = planes.shape
+
+    def tr(block):
+        # transpose32 is the anti-transpose (T[i] bit b = M[31-b] bit
+        # 31-i); flipping the 32 axis on both sides straightens it
+        k = 32 - block.shape[0]
+        if k:
+            block = torch.cat([block, block.new_zeros((k, P, n32))])
+        t = _bit_transpose32_pm(block.flip(0)).flip(0)
+        return t.permute(1, 2, 0).reshape(P, n32 * 32)
+
+    lo = tr(planes[:min(width, 32)])
+    if width > 32:
+        hi = tr(planes[32:width])
+    else:
+        hi = planes.new_zeros((P, n32 * 32))
+    return lo, hi
+
+
+def decode_bitplanes_u32(planes: torch.Tensor, width: int) -> torch.Tensor:
+    """Packed-domain values of width <= 32 as int32-carried u32 [P, N].
+    Small widths keep the expand/or chain (padding to a 32-plane
+    transpose costs more than the short chain); wider ones transpose."""
+    if width > 32:
+        raise ValueError(f"decode_bitplanes_u32: width {width} > 32")
+    if width > 8:
+        return decode_bitplanes_pair(planes, width)[0]
+    _w, P, n32 = planes.shape
+    out = planes.new_zeros((P, n32 * 32))
+    for p in range(width):
+        out = out | (_expand_bits(planes[p]) << p)
+    return out

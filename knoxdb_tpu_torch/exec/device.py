@@ -11,9 +11,10 @@ exact partials that the host combines with python ints: masked per-plane
 popcounts {"pcnt", "cnt"} and tournament winners {"mnmx", "cnt"}, the
 same forms the fused scan kernels emit (ops/scan_kernels.py).
 
-This slice matches narrow BITPACK, CONST and DICT code ranges and
-aggregates narrow BITPACK; the other schemes raise NotImplementedError
-naming the ROADMAP.md item that ports them.
+This slice matches narrow BITPACK, CONST and DICT code ranges,
+aggregates narrow BITPACK, and decodes narrow BITPACK, CONST and DICT
+groups to value halves or ordered keys for group-by; the other schemes
+raise NotImplementedError naming the ROADMAP.md item that ports them.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..encode import schemes as S
 from ..encode.schemes import Scheme
 from ..ops import bitslice as B
 from ..ops import words as WD
@@ -30,7 +32,8 @@ from ..pack.segment import EncodedColumn, Segment
 from ..types import FieldType, FilterMode
 
 __all__ = ["DeviceGroup", "DeviceColumn", "DeviceSegment", "group_match",
-           "group_masked_sum", "group_masked_minmax"]
+           "group_masked_sum", "group_masked_minmax", "group_decode_halves",
+           "group_decode_keys"]
 
 _TODO_SCHEMES = ("ROADMAP.md queue 1 item 3: DELTA/RLE/RAW/ALP and wide "
                  "matching and aggregates")
@@ -229,3 +232,56 @@ def group_masked_minmax(g: DeviceGroup, mask_words):
     mx = B._tournament_planes(planes, mask_words, g.width, want_max=True)
     return {"mnmx": torch.stack([*mn, *mx], dim=1),
             "cnt": B.popcount_words(mask_words)}
+
+
+# --------------------------------------------------------------- decoding ---
+
+def _limbs_to_halves(values: torch.Tensor):
+    """int32-carried limbs [Pg, L, k] (L <= 2, most significant first) ->
+    u64 halves (lo, hi) int32[Pg, k]: the reference's _limbs_to_u64."""
+    if values.shape[1] == 1:
+        lo = values[:, 0, :]
+        return lo, torch.zeros_like(lo)
+    return values[:, 1, :], values[:, 0, :]
+
+
+def group_decode_halves(g: DeviceGroup, W: int):
+    """Decode a narrow BITPACK, CONST or DICT group to value-domain u64
+    halves (lo int32[Pg, N], hi int32[Pg, N]), int32-carried.
+
+    BITPACK: the bit-transpose decode plus each pack's min_key, with the
+    carry out of the low word; CONST: the pack value broadcast; DICT: the
+    codes looked up in the pack's value table with one gather per half (the
+    reference's one-hot MXU lookup is a TPU workaround); bytes
+    dictionaries (group ids come from their codes) decode to zeros."""
+    N = W * 32
+    if g.wide or g.scheme not in (Scheme.BITPACK, Scheme.CONST, Scheme.DICT):
+        raise NotImplementedError(
+            f"group decode: {g.scheme.name} (wide={g.wide}): "
+            f"{_TODO_SCHEMES}")
+    if g.scheme == Scheme.CONST:
+        lo, hi = _limbs_to_halves(g.arrays["values"][:, :, :1])
+        return lo.expand(-1, N), hi.expand(-1, N)
+    if g.scheme == Scheme.DICT and g.dict_bytes is not None:
+        # a bytes dictionary has no integer values: zeros, as the
+        # reference's lookup of its placeholder table gives
+        z = g.arrays["planes"].new_zeros((g.npacks, N))
+        return z, z
+    if g.scheme == Scheme.DICT:
+        codes = S.decode_bitplanes_u32(g.arrays["planes"], g.width).long()
+        vlo, vhi = _limbs_to_halves(g.arrays["values"])
+        return (torch.gather(vlo, 1, codes), torch.gather(vhi, 1, codes))
+    lo, hi = S.decode_bitplanes_pair(g.arrays["planes"], g.width)
+    mlo, mhi = (torch.from_numpy(h.astype(np.int64)).to(lo.device)[:, None]
+                for h in WD.split_u64(g.min_keys))
+    s = WD.u32_to_i64(lo) + mlo
+    carry = s >> 32
+    return (WD.u32_from_i64(s & 0xFFFFFFFF),
+            WD.u32_from_i64((WD.u32_to_i64(hi) + mhi + carry) & 0xFFFFFFFF))
+
+
+def group_decode_keys(g: DeviceGroup, W: int) -> torch.Tensor:
+    """Decode a narrow group to its u64 keys as order-preserving int64
+    [Pg, N] (ops/words.ordered_i64): torch has no uint64, and searches and
+    min/max need the order."""
+    return WD.ordered_i64(*group_decode_halves(g, W))

@@ -17,7 +17,9 @@ Per query:
 Plans are cached on their full signature (segment shapes, the filter
 tree, pruning decisions, aggregates, the fusion plan and the per-group
 rewrite statics), so two queries share a plan only if they run the same
-program; query literals stay runtime operands.
+program; query literals stay runtime operands. Group-by and series plans
+(`group_scan`, `series_scan`) run a mask-only scan plan first and key on
+its full signature too.
 """
 
 from __future__ import annotations
@@ -72,6 +74,7 @@ class SegmentScanner:
     def __init__(self, dseg: D.DeviceSegment):
         self.d = dseg
         self._fns: dict = {}        # full plan signature -> plan fn
+        self._plan_sigs: dict = {}  # id(plan fn) -> its full signature
         self._acache: dict = {}     # (tdesc, leaf values) -> device consts
         self._fused_ops: dict = {}  # kernel operand cache; keys:
         # bitpack (field, w, lo, hi) / dict (field, w, "dict", mode, value)
@@ -143,6 +146,9 @@ class SegmentScanner:
             fn = self._build_fn(tdesc, leaves, skip_leaf, aggs, agg_fields,
                                 fuse, has_excl, has_incl)
             self._fns[sig] = fn
+        # dependent plans (group_scan, series_scan) key on the mask plan's
+        # whole signature: two trees must never share one
+        self._plan_sigs[id(fn)] = sig
 
         # fused kernel operands: per-plane select words bound on the HOST
         # per query (tiny numpy over P packs), appended as the trailing
@@ -213,6 +219,164 @@ class SegmentScanner:
         res.stats["packs_matched"] = int((counts_np > 0).sum())
         self._combine_aggs(res, aggs, agg_parts)
         return res
+
+    # ---------------------------------------------------------- group-by --
+
+    def group_scan(self, tree: Node | None, group_field: str,
+                   agg_fields: list[str], exclude_words=None,
+                   global_keys: np.ndarray | None = None, gplan=None,
+                   minmax: bool = True):
+        """Hash-aggregate: per-group (count, exact int sum, min, max) for
+        each agg field. Returns (gplan, counts int64[G], {field: (sums
+        object[G] of python ints, min u64[G], max u64[G])}), sums and
+        extremes in keyform.
+
+        The group domain comes from host metadata (dictionaries, zone
+        maps); pass global_keys to align several segments on one domain.
+        minmax=False runs the group kernel (ops/group_kernels.py) at every
+        G, and min/max are then the empty sentinels (u64 max, 0);
+        minmax=True runs exec/groupby.group_aggregate."""
+        from . import groupby as GB
+        d = self.d
+        if not agg_fields:
+            agg_fields = [group_field]   # count-only: aggregate the key
+        if gplan is None:
+            gplan = GB.plan_groups(d, group_field, global_keys)
+        mask_fn, margs = self.prepare(tree, [], exclude_words)
+        used = sorted(set([group_field] + list(agg_fields)))
+        mode_tags = tuple(m[0] for m in gplan.mode)
+        sig = ("group", d.sig(used), group_field, tuple(agg_fields),
+               mode_tags, gplan.G, exclude_words is not None, minmax,
+               self._plan_sigs[id(mask_fn)])
+        gfn = self._fns.get(sig)
+        if gfn is None:
+            groups = d.column(group_field).groups
+            G = gplan.G
+
+            def gfn(margs, gconsts):
+                mask, _, _ = mask_fn(*margs)
+                gids = GB.row_gids(mode_tags, groups, gconsts, d.P, d.W)
+                out = {}
+                for f in agg_fields:
+                    if minmax:
+                        keys = self._decode_rows(f, D.group_decode_keys)
+                        out[f] = GB.group_aggregate(gids, mask, keys, G)
+                    else:
+                        pair = self._decode_rows(f, D.group_decode_halves)
+                        out[f] = GB.group_count_sum(gids, mask, pair, G)
+                return out
+
+            self._fns[sig] = gfn
+
+        out = gfn(margs, GB.gid_consts(gplan, d.device))
+        results = {}
+        counts = None
+        for f in agg_fields:
+            c, s_lo, s_hi = out[f][:3]
+            if minmax:
+                mn, mx = (WD.u64_from_ordered(t.cpu().numpy())
+                          for t in out[f][3:])
+            else:
+                mn = np.full(gplan.G, 0xFFFFFFFFFFFFFFFF, np.uint64)
+                mx = np.zeros(gplan.G, np.uint64)
+            if counts is None:
+                counts = c.cpu().numpy()
+            results[f] = (GB.halves_sum(s_lo, s_hi), mn, mx)
+        return gplan, counts, results
+
+    def series_scan(self, tree: Node | None, time_field: str, kinds: dict,
+                    gplan, exclude_words=None):
+        """Per-bucket reducer partials for the series layer. This slice
+        ports the exact moments route: kinds {field: ("moments",)} on
+        integer fields whose rebased zone-map range fits 32 bits
+        (exec/groupby.chunk_plan gives at most 4 byte chunks). Returns
+        {(field, "moments"): (n int64[G], sum f64[G], sumsq f64[G])}, the
+        exact python-int sums cast to f64 once.
+
+        The value r = key - gmin (< 2^32) and its square run through the
+        moments kernel in one pass; the host recombines the value-domain
+        sums with python ints: value = r + base, base = gmin - sign
+        offset."""
+        from . import groupby as GB
+        d = self.d
+        fields = sorted(kinds)
+        todo = "ROADMAP.md queue 1 item 7"
+        bases = {}
+        for f in fields:
+            other = sorted(set(kinds[f]) - {"moments"})
+            if other:
+                raise NotImplementedError(
+                    f"series_scan {f}: kinds {other} are not ported yet: "
+                    f"{todo}")
+            ft = d.seg.columns[f].field.type
+            if ft.is_float:
+                raise NotImplementedError(
+                    f"series_scan {f}: float moments are not ported yet: "
+                    f"{todo}")
+            n_chunks, gmin = GB.chunk_plan(d.seg.stats.fields.get(f))
+            if n_chunks > 4:
+                raise NotImplementedError(
+                    f"series_scan {f}: moments of values spanning more "
+                    f"than 32 bits (the reference's sort route) are not "
+                    f"ported yet: {todo}")
+            bases[f] = gmin
+        mask_fn, margs = self.prepare(tree, [], exclude_words)
+        used = sorted(set([time_field] + fields))
+        mode_tags = tuple(m[0] for m in gplan.mode)
+        sig = ("series", d.sig(used), time_field, tuple(fields), mode_tags,
+               gplan.G, exclude_words is not None,
+               self._plan_sigs[id(mask_fn)])
+        sfn = self._fns.get(sig)
+        if sfn is None:
+            groups = d.column(time_field).groups
+            G = gplan.G
+
+            def sfn(margs, gconsts, bases):
+                mask, _, _ = mask_fn(*margs)
+                gids = GB.row_gids(mode_tags, groups, gconsts, d.P, d.W)
+                out = {}
+                for f in fields:
+                    pair = self._decode_rows(f, D.group_decode_halves)
+                    rlo, rhi = GB._value_halves(pair, bases[f])
+                    out[f] = GB.group_moments_exact(
+                        gids, mask, (rlo, rhi), GB.square_halves(rlo), G)
+                return out
+
+            self._fns[sig] = sfn
+
+        out = sfn(margs, GB.gid_consts(gplan, d.device), bases)
+        res = {}
+        for f in fields:
+            c, sr_lo, sr_hi, sq_lo, sq_hi = out[f]
+            ft = d.seg.columns[f].field.type
+            counts = c.cpu().numpy()
+            s_r = GB.halves_sum(sr_lo, sr_hi)
+            s_q = GB.halves_sum(sq_lo, sq_hi)
+            base = bases[f] - ((1 << (ft.bits - 1)) if ft.is_signed else 0)
+            no = counts.astype(object)
+            res[(f, "moments")] = (
+                counts, (base * no + s_r).astype(np.float64),
+                (no * (base * base) + (2 * base) * s_r + s_q)
+                .astype(np.float64))
+        return res
+
+    def _decode_rows(self, fname: str, dec):
+        """One column decoded over the whole segment: dec(group, W) ->
+        tensor or tuple of tensors [Pg, N] per device group, scattered
+        into [P, N] where the column has several groups."""
+        d = self.d
+        groups = d.column(fname).groups
+        if len(groups) == 1 and groups[0].npacks == d.P:
+            return dec(groups[0], d.W)
+        full = None
+        for g in groups:
+            part = dec(g, d.W)
+            parts = part if isinstance(part, tuple) else (part,)
+            if full is None:
+                full = [p.new_zeros((d.P, d.N)) for p in parts]
+            for f_, p in zip(full, parts):
+                f_[g.idx_t] = p
+        return tuple(full) if isinstance(part, tuple) else full[0]
 
     # ---------------------------------------------------------- planning --
 

@@ -1,8 +1,9 @@
 """Build and bind the CUDA kernels in csrc/ (plain C interface + ctypes).
 
-`load()` compiles every csrc/*.cu with nvcc for sm_90a into one shared
-library under knoxdb_tpu_torch/_build/ on first use, named by a hash of
-the sources and flags (an edited source builds anew), and binds its C
+`load()` compiles each csrc/*.cu with nvcc for sm_90a into its own shared
+library under knoxdb_tpu_torch/_build/ on first use, one nvcc process per
+source, all started together, each library named by a hash of its
+sources and the flags (an edited source builds anew), and binds the C
 entry points with ctypes. Nothing is built or loaded at import time.
 """
 
@@ -15,6 +16,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 __all__ = ["load", "NVCC_FLAGS", "BUILD_DIR"]
 
@@ -33,10 +35,12 @@ _SIGNATURES = {
                             _PP, _I, _P, _P, _P, _I, _I, _P],
     "knox_fused_range_sum_masked": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                                     _I, _P],
+    "knox_group_sums": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
 }
 
+
 _lib = None
-build_info: dict = {}     # seconds, library path and nvcc's -Xptxas -v log
+build_info: dict = {}     # seconds, library paths and nvcc's -Xptxas -v log
 
 
 def _nvcc() -> str:
@@ -48,39 +52,59 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME to the CUDA toolkit")
 
 
-def _build() -> Path:
-    sources = sorted(SRC_DIR.glob("*.cu")) + sorted(SRC_DIR.glob("*.cuh"))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for s in sources:
-        h.update(s.name.encode())
-        h.update(s.read_bytes())
-    so = BUILD_DIR / f"libknox_scan_{h.hexdigest()[:16]}.so"
-    build_info["library"] = str(so)
-    if so.exists():
-        build_info.update(seconds=0.0, log="(cached)")
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in sources if s.suffix == ".cu")]
+def _build() -> list[Path]:
+    """Compile every csrc/*.cu that has no library yet, in parallel."""
+    headers = sorted(SRC_DIR.glob("*.cuh"))
+    jobs, libs = [], []
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
+    for src in sorted(SRC_DIR.glob("*.cu")):
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for s in [src, *headers]:
+            h.update(s.name.encode())
+            h.update(s.read_bytes())
+        so = BUILD_DIR / f"lib{src.stem}_{h.hexdigest()[:16]}.so"
+        libs.append(so)
+        if not so.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            jobs.append((so, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+    logs, failed = [], []
+    for so, tmp, proc in jobs:
+        out, _ = proc.communicate()
+        logs.append(f"[{so.name}]\n{out.strip()}")
+        if proc.returncode != 0:
+            failed.append(f"{so.name}: nvcc exit {proc.returncode}")
+        else:
+            os.replace(tmp, so)
     build_info.update(seconds=time.perf_counter() - t0,
-                      log=(r.stdout + r.stderr).strip())
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{build_info['log']}")
-    os.replace(tmp, so)
-    return so
+                      library=", ".join(str(s) for s in libs),
+                      log="\n".join(logs) if jobs else "(cached)")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "; ".join(failed) + "\n"
+                           + build_info["log"])
+    return libs
 
 
-def load() -> ctypes.CDLL:
-    """The bound kernel library, built on first use."""
+def load() -> SimpleNamespace:
+    """The bound C entry points of every built library, by name, built on
+    first use."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(_build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+        kernels = SimpleNamespace()
+        for so in _build():
+            lib = ctypes.CDLL(str(so))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name, None)
+                if fn is None:
+                    continue
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                setattr(kernels, name, fn)
+        missing = [n for n in _SIGNATURES if not hasattr(kernels, n)]
+        if missing:
+            raise RuntimeError(f"kernel entry points not found: {missing}")
+        _lib = kernels
     return _lib

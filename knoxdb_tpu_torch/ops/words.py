@@ -5,7 +5,9 @@ Torch has no full set of uint32 ops on every device (on the CPU `~`,
 packed word as an int32 tensor holding the same 32 bits. `&`, `|`, `^`
 and `~` are the same on both readings; right shifts of int32 are
 arithmetic, so `lsr` masks the sign copies off; counts never go through
-a signed overflow. u64 keys stay on the host, split into u32 halves.
+a signed overflow. u64 keys stay on the host, split into u32 halves; on
+the device a u64 is a pair of such words (lo, hi), or, where it must be
+ordered or searched, an order-preserving int64 (`ordered_i64`).
 """
 
 from __future__ import annotations
@@ -14,9 +16,12 @@ import numpy as np
 import torch
 
 __all__ = ["FULL", "to_words", "from_words", "lsr", "popcount",
-           "split_u64", "join_u64", "u32_from_i64"]
+           "split_u64", "join_u64", "u32_from_i64", "u32_to_i64",
+           "ordered_i64", "ordered_from_u64", "u64_from_ordered"]
 
 FULL = -1          # 0xFFFFFFFF read as int32
+_I32_MIN = -(1 << 31)
+_BIT63 = np.uint64(1 << 63)
 
 
 def to_words(a, device) -> torch.Tensor:
@@ -51,6 +56,29 @@ def popcount(x: torch.Tensor) -> torch.Tensor:
 def u32_from_i64(v: torch.Tensor) -> torch.Tensor:
     """int64 values in [0, 2^32) -> int32 tensor holding the same bits."""
     return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+def u32_to_i64(x: torch.Tensor) -> torch.Tensor:
+    """int32-carried u32 words -> int64 values in [0, 2^32)."""
+    return x.to(torch.int64) & 0xFFFFFFFF
+
+
+def ordered_i64(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """u64 halves (int32-carried) -> the order-preserving int64 key: the
+    u64 with bit 63 flipped, read as int64, so x < y as u64 iff
+    ordered(x) < ordered(y). No step overflows: the flipped high word read
+    as int32 times 2^32 plus the low word stays inside int64."""
+    return (hi ^ _I32_MIN).to(torch.int64) * (1 << 32) + u32_to_i64(lo)
+
+
+def ordered_from_u64(a) -> np.ndarray:
+    """Host u64 -> the int64 keys of `ordered_i64`."""
+    return (np.asarray(a, np.uint64) ^ _BIT63).view(np.int64)
+
+
+def u64_from_ordered(a) -> np.ndarray:
+    """Host int64 keys of `ordered_i64` -> u64."""
+    return np.ascontiguousarray(a, np.int64).view(np.uint64) ^ _BIT63
 
 
 def split_u64(a) -> tuple[np.ndarray, np.ndarray]:

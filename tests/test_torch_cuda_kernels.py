@@ -1,4 +1,4 @@
-"""CUDA scan kernels vs their plain PyTorch versions, on the card.
+"""CUDA scan and group kernels vs their plain PyTorch versions, on the card.
 
 The kernels have no CPU mode, so these tests skip without a GPU; run them
 on one with `python -m pytest -m cuda tests/test_torch_cuda_kernels.py`.
@@ -8,6 +8,8 @@ import numpy as np
 import pytest
 import torch
 
+from knoxdb_tpu_torch.ops import bitset as TBS
+from knoxdb_tpu_torch.ops import group_kernels as GK
 from knoxdb_tpu_torch.ops import scan_kernels as SK
 from knoxdb_tpu_torch.ops import words as WD
 from knoxdb_tpu_torch.testing import random_tree_case
@@ -79,3 +81,54 @@ def test_wrapper_rejects_bad_operands(cuda):
     with pytest.raises(TypeError):
         SK.fused_tree_agg([p.to(torch.int64) for p in planes], leaf_ops,
                           leaf_field, mask_in, fwidths, specs)
+
+
+def _group_case(rng, P, N, G, K, device):
+    """Random group-kernel operands: gids in [-2, G + 3), a 70% mask,
+    carry-stress values (all-ones words) and, for K = 2, square halves of
+    values up to 2^32 - 1."""
+    from knoxdb_tpu_torch.exec import groupby as GB
+    gid = rng.integers(-2, G + 3, (P, N)).astype(np.int32)
+    mask = rng.random((P, N)) < 0.7
+    words = np.stack([TBS.np_pack_mask(mask[p]) for p in range(P)])
+    vals = rng.integers(0, 1 << 32, (2, P, N), dtype=np.uint64) \
+        .astype(np.uint32)
+    vals[:, 0, :64] = 0xFFFFFFFF
+    args = [torch.from_numpy(gid).to(device), WD.to_words(words, device),
+            WD.to_words(vals[0], device), WD.to_words(vals[1], device)]
+    if K == 2:
+        args[3] = torch.zeros_like(args[3])
+        args += list(GB.square_halves(args[2]))
+    return args
+
+
+@pytest.mark.parametrize("G", [1, 200, 1000, 1229, 2049, 8192, 65536])
+@pytest.mark.parametrize("K", [1, 2])
+def test_group_kernels_equal_plain(cuda, G, K):
+    rng = np.random.default_rng(G * 10 + K)
+    args = _group_case(rng, 4, 32768, G, K, cuda)
+    if K == 1:
+        kern, plain, name = (GK.fused_group_partials,
+                             GK.fused_group_partials_torch,
+                             "fused_group_partials")
+    else:
+        kern, plain, name = (GK.fused_group_moments_partials,
+                             GK.fused_group_moments_partials_torch,
+                             "fused_group_moments_partials")
+    before = GK.LAUNCHES[name]
+    got = kern(*args, G)
+    torch.cuda.synchronize()
+    assert GK.LAUNCHES[name] == before + 1
+    want = plain(*args, G)
+    assert len(got) == len(want) == 1 + 2 * K
+    for g, w in zip(got, want):
+        _same(g, w, name)
+
+
+def test_group_wrapper_rejects_bad_operands(cuda):
+    rng = np.random.default_rng(3)
+    gid, mask, vlo, vhi = _group_case(rng, 2, 1024, 10, 1, cuda)
+    with pytest.raises(ValueError):
+        GK.fused_group_partials(gid, mask.cpu(), vlo, vhi, 10)
+    with pytest.raises(TypeError):
+        GK.fused_group_partials(gid, mask, vlo.to(torch.int64), vhi, 10)
