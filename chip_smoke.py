@@ -13,12 +13,16 @@ exits nonzero:
      W = 2048, 1-3 leaves, sum and min/max specs and an empty pack. Group
      kernels: 4,194,304 rows at G = 1, 200, 1000, 8192 and 65,536, with
      invalid gids, 70% masks and all-ones values; the moments kernel with
-     the squares of values up to 2^32 - 1;
+     the squares of values up to 2^32 - 1. The tile sort (kernel #8):
+     4 tiles of keys in [0, 8) and 32 tiles of full-range u32 keys, ntpose
+     0 and 8;
   4. main paths, each run with every launch counter set to 0 just before
      it and read just after, each exactly equal to a numpy oracle:
      - scan: the benchmark segment (256 packs x 65,536 rows, seed 0xBEEF,
        the schema and data of bench.py) scanned with BASELINE config #1,
        the two-leaf check and the entry() query;
+     - materialization on the same segment: scan(project=val, bal) and
+       scan_stream of a ~1% filter, every row id and value;
      - group-by, BASELINE config #3 (bench_suite.py:171-198, seed
        0xC0FFEE, G = 1000, the 99%-pass `bal GT` filter) at 256 x 65,536
        rows, group_scan with minmax False and True: every group's count,
@@ -26,6 +30,15 @@ exits nonzero:
      - group-by config #3c: G = 65,536 at 64 packs, minmax False;
      - series, config #6 (bench_suite.py:438-455, 1024 buckets of 64):
        series_scan moments at 64 packs, counts, sums and sums of squares;
+     - joins, config #5 (bench_suite.py:303-418) at nl = nr = 4,194,304:
+       join_pairs_device INNER and LEFT, unique_build with keys32, a build
+       key run wider than SHIFT_S (the ladder's fallback), join_pairs_core
+       with a cap retry and join_count_device, each an exact pair multiset;
+     - the sort probe: kernel #8 on the join's merged (key, tagged id)
+       operands at N = 2,097,152 and at M = 8,388,608;
+     - tx join accounts from two segments of 4,194,304 rows, composed as
+       engine/table.py's join_side and rows_at_positions do, with no
+       filter and with amount > 0: every pair's amount and bal;
   5. timing (CUDA events, medians over alternating query variants, with
      the host's launch overhead hidden behind a GPU sleep): each kernel
      and its plain version at the main paths' shapes (scan kernels also
@@ -34,7 +47,11 @@ exits nonzero:
      bytes/s as a share of a same-run torch read pass over 256 MiB; and
      for group_scan and series_scan the device time of each stage (mask,
      group ids, decode, kernel), the host combine, and torch.profiler's
-     device idle share and top kernels.
+     device idle share and top kernels; kernel #8, its plain version and
+     torch.sort on the join's operands with the probe's projection
+     (msort_probe.py:221-236) from the card's own costs; each join
+     core's wall and its device time in sorts, in the D2H copy and in the
+     rest; scan(project=) and the tx join's wall.
 
 The last three lines are the kernels' JSON record, the card, and
 {"ok": true, "device": {...}}. Needs a CUDA device and the repository.
@@ -230,6 +247,20 @@ def _queries(sch):
     }
 
 
+def _mat_tree(sch, lo):
+    """The materialization query: val RANGE (lo, lo + 655), ~1% of rows."""
+    from knoxdb_tpu_torch.query.filter import Filter, leaf
+    from knoxdb_tpu_torch.types import FilterMode
+    return leaf(Filter(sch.field("val"), FilterMode.RANGE,
+                       (lo, lo + 655))).optimize()
+
+
+def _gt_tree(sch, field, thr):
+    from knoxdb_tpu_torch.query.filter import Filter, leaf
+    from knoxdb_tpu_torch.types import FilterMode
+    return leaf(Filter(sch.field(field), FilterMode.GT, thr)).optimize()
+
+
 def _oracle(data, name, lo):
     m = (data["val"] >= lo) & (data["val"] <= 50000)
     if name != "config1":
@@ -246,6 +277,12 @@ def _oracle(data, name, lo):
 
 
 _CYCLES_PER_MS = None
+_T0 = time.perf_counter()
+
+
+def _mark(what: str) -> None:
+    print(f"elapsed: {what} done at {time.perf_counter() - _T0:.1f} s",
+          flush=True)
 
 
 def _gpu_sleep(ms: float):
@@ -320,12 +357,6 @@ def _cfg3_segment(n_packs: int, G: int):
     t0 = time.perf_counter()
     seg = build_segment(sch, data, pack_size=PACK_SIZE)
     return sch, data, seg, time.perf_counter() - t0
-
-
-def _cfg3_tree(sch, thr: int):
-    from knoxdb_tpu_torch.query.filter import Filter, leaf
-    from knoxdb_tpu_torch.types import FilterMode
-    return leaf(Filter(sch.field("bal"), FilterMode.GT, thr)).optimize()
 
 
 _U64_MAX = np.uint64(0xFFFFFFFFFFFFFFFF)
@@ -449,7 +480,9 @@ def _wall_ms(fn, iters=ITERS, warmup=3):
 
 def _profile(fn, n=10):
     """torch.profiler over n calls of fn(i): profiled wall and device busy
-    time per call, the device idle share, and the top kernels."""
+    time per call, the device idle share, the top kernels, and the device
+    time per call of sort kernels (names with "sort" or "radix"), of
+    device-to-host copies and of everything else."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -469,9 +502,482 @@ def _profile(fn, n=10):
             by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     busy = sum(by.values())
     top = sorted(by.items(), key=lambda kv: -kv[1])[:6]
+    cats = {"sort_ms": 0.0, "d2h_ms": 0.0, "other_ms": 0.0}
+    for name, ms in by.items():
+        low = name.lower()
+        if "memcpy" in low and "dtoh" in low:
+            cats["d2h_ms"] += ms / n
+        elif "sort" in low or "radix" in low:
+            cats["sort_ms"] += ms / n
+        else:
+            cats["other_ms"] += ms / n
     return {"wall_ms": wall / n, "device_ms": busy / n,
-            "idle_share": 1.0 - busy / wall,
+            "idle_share": 1.0 - busy / wall, **cats,
             "top": [(k[:70], v / n) for k, v in top]}
+
+
+# ------------------------------------------------ joins and tile sorts ---
+
+JOIN_SEED = 0xC0FFEE                  # bench_suite.py:642, config 5 alone
+NL5 = PACK_SIZE * N_PACKS // 4        # bench_suite.py:320 at 256 packs
+TAGBIT = 1 << 31
+
+
+def phase_sort_kernel_vs_plain(dev):
+    """Kernel #8 against its plain version, bit for bit: keys from the
+    probe's default_rng(3), payload arange; 4 tiles of keys in [0, 8)
+    (ties everywhere) and 32 tiles of full-range u32 keys; ntpose 0 and 8
+    (msort_probe.py:132-134)."""
+    import torch
+    from knoxdb_tpu_torch.ops import sort_kernels as S8
+    from knoxdb_tpu_torch.ops import words as WD
+
+    rng = np.random.default_rng(3)
+    ncase = 0
+    for B, krange in ((4, 8), (32, 1 << 32)):
+        n = B * S8.TILE
+        keys = WD.to_words(rng.integers(0, krange, n, dtype=np.uint64)
+                           .astype(np.uint32), dev)
+        pay = torch.arange(n, dtype=torch.int32, device=dev)
+        for ntpose in (0, 8):
+            got = S8.tile_bitonic_sort(keys, pay, ntpose)
+            err = _max_err(got, S8.tile_bitonic_sort_torch(keys, pay, ntpose))
+            if err:
+                raise AssertionError(f"tile_bitonic_sort B={B} keys < "
+                                     f"{krange} ntpose={ntpose}: {err}")
+            ncase += 1
+    torch.cuda.synchronize()
+    print(f"phase 3 tile sort kernel=plain: {ncase} cases bit-identical "
+          f"(4 tiles of keys in [0, 8), 32 tiles of full-range u32 keys, "
+          f"payload arange, ntpose 0 and 8)")
+
+
+def _cfg5_keys(nl: int):
+    """Config #5's join keys (bench_suite.py:320-322, :356): u64 keys
+    uniform in [0, 2 nl) with duplicates on both sides, and the unique
+    build side permutation(2 * arange(nr))."""
+    rng = np.random.default_rng(JOIN_SEED)
+    lk = rng.integers(0, nl * 2, nl, dtype=np.uint64)
+    rk = rng.integers(0, nl * 2, nl, dtype=np.uint64)
+    rku = rng.permutation(np.arange(nl, dtype=np.uint64) * np.uint64(2))
+    return lk, rk, rku
+
+
+def _join_oracle(lk, rk, how):
+    """Vectorized numpy join: every (probe row, build row) of equal keys,
+    plus (probe row, -1) for LEFT misses. Returns the pairs encoded as
+    sorted int64 codes l * (nr + 1) + r + 1 (a multiset). The probe keys
+    are searched in sorted order: numpy's search of ascending needles
+    walks the build keys once, several times faster than random ones."""
+    order = np.argsort(rk, kind="stable")
+    rs = rk[order]
+    lorder = np.argsort(lk, kind="stable")
+    ls = lk[lorder]
+    lo = np.searchsorted(rs, ls, "left")
+    cnt = np.searchsorted(rs, ls, "right") - lo
+    eff = np.maximum(cnt, 1) if how == "left" else cnt
+    li = np.repeat(lorder, eff)
+    k = np.arange(len(li)) - np.repeat(np.cumsum(eff) - eff, eff)
+    hit = np.repeat(cnt > 0, eff)
+    ri = np.full(len(li), -1, np.int64)
+    ri[hit] = order[np.repeat(lo, eff)[hit] + k[hit]]
+    return _pair_codes(li, ri, len(rk))
+
+
+def _pair_codes(li, ri, nr):
+    return np.sort(np.asarray(li, np.int64) * (nr + 1)
+                   + np.asarray(ri, np.int64) + 1)
+
+
+def _check_pairs(name, got, want, nr):
+    codes = _pair_codes(got[0], got[1], nr)
+    if not np.array_equal(codes, want):
+        raise AssertionError(f"{name}: {len(codes)} pairs vs {len(want)} "
+                             f"from the numpy oracle, or they differ")
+    return len(codes)
+
+
+def _key_tensor(a, dev):
+    import torch
+    return torch.from_numpy(np.ascontiguousarray(a, np.uint64)
+                            .view(np.int64)).to(dev)
+
+
+def _merged_operands(lk, rk, dev):
+    """The config #5 join's merged sort operands, as the keys32 merged
+    sort builds them (exec/join._merged_sort_tagged): key = the low 32 key
+    bits of [build, probe], payload = build ids, then TAGBIT | probe ids;
+    int32-carried u32."""
+    from knoxdb_tpu_torch.ops import words as WD
+    keys = (np.concatenate([rk, lk]) & np.uint64(0xFFFFFFFF)) \
+        .astype(np.uint32)
+    pidt = np.concatenate([np.arange(len(rk), dtype=np.uint32),
+                           np.arange(len(lk), dtype=np.uint32)
+                           | np.uint32(TAGBIT)])
+    return WD.to_words(keys, dev), WD.to_words(pidt, dev)
+
+
+def phase_joins(dev, nl):
+    """Config #5 at nl = nr: join_pairs_device INNER and LEFT (shift
+    core), unique_build with keys32, join_pairs_core with a cap retry,
+    join_count_device, and a build with a key run wider than SHIFT_S (the
+    ladder falls back to the general core); each an exact pair multiset
+    against numpy. Returns the device keys and the oracles for phase 5."""
+    from knoxdb_tpu_torch.exec import join as TJ
+    from knoxdb_tpu_torch.types import JoinType
+
+    lk, rk, rku = _cfg5_keys(nl)
+    # one key with 40 builds: its run spans more than SHIFT_S entries
+    rkw = rk.copy()
+    rkw[:40] = lk[0]
+    d = {n: _key_tensor(a, dev) for n, a in
+         (("lk", lk), ("rk", rk), ("rku", rku), ("rkw", rkw))}
+    want = {"inner": _join_oracle(lk, rk, "inner"),
+            "left": _join_oracle(lk, rk, "left"),
+            "unique": _join_oracle(lk, rku, "inner"),
+            "wide": _join_oracle(lk, rkw, "inner")}
+    out = {}
+    out["inner"] = _check_pairs("join_pairs_device INNER", TJ.join_pairs_device(
+        d["lk"], d["rk"], JoinType.INNER), want["inner"], nl)
+    out["left"] = _check_pairs("join_pairs_device LEFT", TJ.join_pairs_device(
+        d["lk"], d["rk"], JoinType.LEFT), want["left"], nl)
+    out["unique"] = _check_pairs(
+        "join_pairs_device unique_build keys32", TJ.join_pairs_device(
+            d["lk"], d["rku"], JoinType.INNER, unique_build=True,
+            keys32=True), want["unique"], nl)
+    _, _, _, maxneed = TJ.join_pairs_core_shift(d["lk"], d["rkw"],
+                                                S=TJ.SHIFT_S)
+    if int(maxneed) <= TJ.SHIFT_S:
+        raise AssertionError(f"wide run: maxneed {int(maxneed)}")
+    out["wide"] = _check_pairs("join_pairs_device wide run (fallback)",
+                               TJ.join_pairs_device(d["lk"], d["rkw"]),
+                               want["wide"], nl)
+    # the general core directly, with a cap that cuts, then the retry
+    cap = 1 << (nl // 4 - 1).bit_length()
+    _, _, total = TJ.join_pairs_core(d["lk"], d["rk"], cap)
+    total = int(total)
+    if total != len(want["inner"]) or total <= cap:
+        raise AssertionError(f"join_pairs_core total {total} at cap {cap}")
+    cap = 1 << (total - 1).bit_length()
+    li, ri, _ = TJ.join_pairs_core(d["lk"], d["rk"], cap)
+    keep = li != -2
+    out["core"] = _check_pairs("join_pairs_core", (li[keep].cpu().numpy(),
+                               ri[keep].cpu().numpy()), want["inner"], nl)
+    for how, key in ((JoinType.INNER, "inner"), (JoinType.LEFT, "left")):
+        c = int(TJ.join_count_device(d["lk"], d["rk"], how))
+        if c != len(want[key]):
+            raise AssertionError(f"join_count_device {key}: {c}")
+    print(f"phase 4 main path config5 joins: nl = nr = {nl}, pairs "
+          f"INNER {out['inner']}, LEFT {out['left']}, unique build "
+          f"{out['unique']}, wide-run fallback {out['wide']}, "
+          f"join_pairs_core after a cap retry {out['core']} (cap {cap}), "
+          f"join_count_device INNER and LEFT; every pair multiset exact vs "
+          f"numpy")
+    return d, cap, out, (lk, rk, rku)
+
+
+def _txacct_segments(lk, rku):
+    """tx (id pk, acct u64 = the probe keys, amount i64 in +-2^40) and
+    accounts (id pk, aid u64 = the unique build keys, bal i64)."""
+    from knoxdb_tpu_torch.pack.segment import build_segment
+    from knoxdb_tpu_torch.schema.schema import Builder
+    from knoxdb_tpu_torch.types import FieldType
+
+    rng = np.random.default_rng(JOIN_SEED + 1)
+    nl, nr = len(lk), len(rku)
+    tx_s = (Builder("tx").pk("id").add("acct", FieldType.UINT64)
+            .add("amount", FieldType.INT64).finish())
+    ac_s = (Builder("accounts").pk("id").add("aid", FieldType.UINT64)
+            .add("bal", FieldType.INT64).finish())
+    tx = {"id": np.arange(1, nl + 1, dtype=np.uint64), "acct": lk,
+          "amount": rng.integers(-1 << 40, 1 << 40, nl, dtype=np.int64)}
+    ac = {"id": np.arange(1, nr + 1, dtype=np.uint64), "aid": rku,
+          "bal": rng.integers(-1 << 40, 1 << 40, nr, dtype=np.int64)}
+    t0 = time.perf_counter()
+    segs = (build_segment(tx_s, tx, pack_size=PACK_SIZE),
+            build_segment(ac_s, ac, pack_size=PACK_SIZE))
+    return (tx_s, tx, segs[0]), (ac_s, ac, segs[1]), \
+        time.perf_counter() - t0
+
+
+def _join_side(sc, tree, field):
+    """engine/table.py:836-861 for one segment: the scan's mask plan ->
+    the key column decoded (group_decode_keys, table.py:845-852) -> the
+    selection vector (mask_to_indexes, :854-855) -> the keys and positions
+    of the matching rows (:856-860). Keys in the two's-complement value
+    domain (:830): the ordered key with bit 63 flipped back for an
+    unsigned field, as it stands for a signed one."""
+    import torch
+    from knoxdb_tpu_torch.exec import device as D
+    from knoxdb_tpu_torch.ops import compact as CP
+
+    d = sc.d
+    fn, args = sc.prepare(tree, [])
+    mask_words, counts, _ = fn(*args)
+    total = int(counts.sum())
+    cap = min(1 << max(0, (total - 1).bit_length()), d.P * d.N)
+    groups = d.column(field).groups
+    keys = torch.empty((d.P, d.N), dtype=torch.int64, device=d.device)
+    for g in groups:
+        keys[g.idx_t] = D.group_decode_keys(g, d.W)
+    if not d.seg.columns[field].field.type.is_signed:
+        keys ^= -(1 << 63)
+    idx, _ = CP.packed_mask_to_indexes(mask_words, cap)
+    safe = torch.where(idx == CP.SENTINEL, 0, idx).long()
+    pos = (idx.long() & 0xFFFFFFFF)[:total]
+    return keys.reshape(-1)[safe][:total], pos
+
+
+def _rows_at(sc, positions, project):
+    """engine/table.py:892-911 for one segment: the matched positions as an
+    include bitset, one scan(None, project=) over it, then each position's
+    row through the inverse of the ascending row ids (a scatter; table.py
+    searches them, which costs seconds at 2M random positions)."""
+    from knoxdb_tpu_torch.exec.scan import AggSpec
+    from knoxdb_tpu_torch.ops import bitset as BS
+
+    d = sc.d
+    mm = np.zeros(d.P * d.N, bool)
+    mm[positions] = True
+    incl = BS.np_pack_mask(mm).reshape(d.P, d.N // 32)
+    r = sc.scan(None, [AggSpec("count")], project=project, include_words=incl)
+    inv = np.empty(d.P * d.N, np.int64)
+    inv[r.row_ids.astype(np.int64)] = np.arange(len(r.row_ids))
+    take = inv[positions]
+    return {name: r.rows[name][take] for name in project}
+
+
+def _tx_join(sc_tx, sc_ac, tree):
+    """tx ⋈ accounts on acct = aid, amount and bal of every pair."""
+    from knoxdb_tpu_torch.exec import join as TJ
+    from knoxdb_tpu_torch.types import JoinType
+
+    lkeys, lpos = _join_side(sc_tx, tree, "acct")
+    rkeys, rpos = _join_side(sc_ac, None, "aid")
+    li, ri = TJ.join_pairs_device(lkeys, rkeys, JoinType.INNER,
+                                  unique_build=True)
+    lp = lpos.cpu().numpy()[li]
+    rp = rpos.cpu().numpy()[ri]
+    return lp, rp, {**_rows_at(sc_tx, lp, ["amount"]),
+                    **_rows_at(sc_ac, rp, ["bal"])}
+
+
+def _tx_join_check(name, got, tx, ac, m):
+    """Against numpy: every tx row passing m whose acct has an account,
+    with its amount and that account's bal, in any order."""
+    lp, rp, cols = got
+    order = np.argsort(ac["aid"])
+    aid = ac["aid"][order]
+    l_rows = np.flatnonzero(m)
+    l_rows = l_rows[np.argsort(tx["acct"][l_rows], kind="stable")]
+    acct = tx["acct"][l_rows]                     # ascending: a fast search
+    at = np.minimum(np.searchsorted(aid, acct), len(order) - 1)
+    hit = aid[at] == acct
+    wl, wr = l_rows[hit], order[at[hit]]
+    s = np.argsort(wl)
+    wl, wr = wl[s], wr[s]
+    s = np.argsort(lp, kind="stable")
+    if not (np.array_equal(lp[s], wl) and np.array_equal(rp[s], wr)
+            and np.array_equal(cols["amount"][s], tx["amount"][wl])
+            and np.array_equal(cols["bal"][s], ac["bal"][wr])):
+        raise AssertionError(f"{name}: pairs or projected values differ "
+                             f"from numpy")
+    return len(wl)
+
+
+def time_sort_probe(kops, pops, probe_ns, stream):
+    """Kernel #8 (ntpose 0 and 8), its plain version and torch.sort
+    (stable, key + payload gather: the join's own sort) on the join's
+    merged operands, and the probe's projection (msort_probe.py:221-236)
+    with the card's per-stage cost and the same-run read pass in place of
+    its TPU constants."""
+    import torch
+    from knoxdb_tpu_torch.ops import sort_kernels as S8
+
+    out = []
+    for n in probe_ns:
+        k, p = kops[:n], pops[:n]
+        k64 = k.long() & 0xFFFFFFFF
+
+        def lib_sort(i):
+            s = torch.sort(k64, stable=True)
+            return s.values, p[s.indices]
+
+        t_stage = _event_ms(lambda i: S8.tile_bitonic_sort(k, p, 0), iters=20)
+        t_tpose = _event_ms(lambda i: S8.tile_bitonic_sort(k, p, 8), iters=20)
+        t_plain = _event_ms(lambda i: S8.tile_bitonic_sort_torch(k, p, 0),
+                            iters=5, warmup=2)
+        t_lib = _event_ms(lib_sort, iters=20)
+        per_stage = t_stage / len(S8.STAGES)
+        per_tpose = max(t_tpose - t_stage, 0.0) / 8
+        n_phases = int(np.log2(n))
+        total_stages = n_phases * (n_phases + 1) // 2
+        cross_tile = sum(max(0, q - int(np.log2(S8.TILE)))
+                         for q in range(1, n_phases + 1))
+        hbm_pass_ms = n * 8 * 3 / stream * 1e3
+        est = (per_stage * total_stages + per_tpose * 2 * n_phases
+               + cross_tile * hbm_pass_ms)
+        rec = {"n": n, "kernel_ms": t_stage, "kernel_ntpose8_ms": t_tpose,
+               "plain_ms": t_plain, "torch_sort_ms": t_lib,
+               "per_stage_ms": per_stage, "per_tpose_ms": per_tpose,
+               "cross_tile_stages": cross_tile, "hbm_pass_ms": hbm_pass_ms,
+               "projection_ms": est,
+               "verdict": "BUILD IT" if est < t_lib / 1.3 else "LEVER CLOSED"}
+        out.append(rec)
+        print(f"phase 5 sort probe N={n}: kernel {t_stage:.4f} ms "
+              f"(ntpose 8: {t_tpose:.4f}), plain {t_plain:.4f} ms, "
+              f"torch.sort {t_lib:.4f} ms; per-stage {per_stage * 1e3:.2f} us, "
+              f"per-transpose {per_tpose * 1e3:.2f} us, cross-tile stages "
+              f"{cross_tile}; PROJECTION full bitonic ~{est:.3f} ms vs "
+              f"torch.sort {t_lib:.3f} ms -> {rec['verdict']}")
+    return out
+
+
+def time_joins(d, cap):
+    """Each join core's host wall (median of 10 calls that end in the
+    host copy of the pairs) and, profiled over 5 calls, the device time of
+    its sorts, of the device-to-host copy and of the rest (shifts, fills,
+    filtering), with the device idle share; and the filter + copy of the
+    shift core's pairs on their own."""
+    import torch
+    from knoxdb_tpu_torch.exec import join as TJ
+    from knoxdb_tpu_torch.types import JoinType
+
+    def filtered(li, ri):
+        keep = li != -2
+        return torch.stack([li[keep], ri[keep]]).cpu().numpy()
+
+    calls = {
+        "unique keys32": lambda i: TJ.join_pairs_device(
+            d["lk"], d["rku"], JoinType.INNER, unique_build=True,
+            keys32=True),
+        "shift INNER": lambda i: TJ.join_pairs_device(d["lk"], d["rk"]),
+        "shift INNER keys32": lambda i: TJ.join_pairs_device(
+            d["lk"], d["rk"], keys32=True),
+        "shift LEFT": lambda i: TJ.join_pairs_device(d["lk"], d["rk"],
+                                                     JoinType.LEFT),
+        "general (join_pairs_core)": lambda i: filtered(
+            *TJ.join_pairs_core(d["lk"], d["rk"], cap)[:2]),
+        "wide-run fallback": lambda i: TJ.join_pairs_device(d["lk"],
+                                                           d["rkw"]),
+        "join_count_device": lambda i: int(TJ.join_count_device(d["lk"],
+                                                                d["rk"])),
+    }
+    out = {}
+    for name, fn in calls.items():
+        out[name] = {"wall_ms": _wall_ms(fn, iters=10, warmup=2),
+                     "profile": _profile(fn, n=5)}
+        print(f"phase 5 join {name}: wall {out[name]['wall_ms']:.3f} ms; "
+              f"profiled: {out[name]['profile']}")
+    li, ri, _, _ = TJ.join_pairs_core_shift(d["lk"], d["rk"])
+    torch.cuda.synchronize()
+    npairs = int((li != -2).sum())
+    out["shift filter + D2H"] = {
+        "wall_ms": _wall_ms(lambda i: filtered(li, ri), iters=10),
+        "bytes": npairs * 8, "candidates": li.numel()}
+    print(f"phase 5 join shift filter + D2H alone: "
+          f"{out['shift filter + D2H']}")
+    return out
+
+
+def run_path(call):
+    """Drive one main path with every launch counter at 0 just before it;
+    returns its result and the counters just after."""
+    import torch
+    from knoxdb_tpu_torch.ops import group_kernels as GK
+    from knoxdb_tpu_torch.ops import scan_kernels as SK
+    from knoxdb_tpu_torch.ops import sort_kernels as S8
+    for mod in (SK, GK, S8):
+        mod.reset_counts()
+    out = call()
+    torch.cuda.synchronize()
+    return out, {**SK.LAUNCHES, **GK.LAUNCHES, **S8.LAUNCHES}
+
+
+def need(launches, names, what):
+    if not all(launches[k] > 0 for k in names):
+        raise AssertionError(f"{what}: a kernel of the path never "
+                             f"launched: {launches}")
+
+
+def phase_materialize(sc, sch, data):
+    """scan(project=) and scan_stream of ~1% of the rows: every passing
+    row's id and values against numpy."""
+    mat_lo, mat_hi, mat_cols = 1000, 1000 + 655, ["val", "bal"]
+    (mat, mat_stream), mat_launches = run_path(lambda: (
+        sc.scan(_mat_tree(sch, mat_lo), [], project=mat_cols),
+        list(sc.scan_stream(_mat_tree(sch, mat_lo), mat_cols))))
+    need(mat_launches, ("fused_tree_agg",), "materialization")
+    rows = np.flatnonzero((data["val"] >= mat_lo) & (data["val"] <= mat_hi))
+    for what, ids, vals in (
+            ("scan(project=)", mat.row_ids, mat.rows),
+            ("scan_stream", np.concatenate([b.row_ids for b in mat_stream]),
+             {c: np.concatenate([b.rows[c] for b in mat_stream])
+              for c in mat_cols})):
+        if not (np.array_equal(ids, rows.astype(np.uint64))
+                and all(np.array_equal(vals[c], data[c][rows])
+                        for c in mat_cols)):
+            raise AssertionError(f"materialization {what}: rows differ "
+                                 f"from numpy")
+    print(f"phase 4 main path materialization: val RANGE ({mat_lo}, "
+          f"{mat_hi}) on the config1 segment, {len(rows)} rows "
+          f"({100 * len(rows) / len(data['val']):.2f}%), scan(project=val, "
+          f"bal) and scan_stream ({len(mat_stream)} windows of 64 packs): "
+          f"row ids and values exact vs numpy; launches {mat_launches}")
+    return mat_lo, mat_cols
+
+
+def phase_sort_probe(dev, lk, rk):
+    """Kernel #8 on the config #5 join's merged (key, tagged id) operands,
+    at the probe's N = 2,097,152 and at the join's M: every column sorted
+    and bit-identical to the plain version."""
+    from knoxdb_tpu_torch.ops import sort_kernels as S8
+    kops, pops = _merged_operands(lk, rk, dev)
+    M5 = kops.shape[0]
+    probe_ns = (min(32 * S8.TILE, M5), M5)
+    sorted_, sort_launches = run_path(
+        lambda: [S8.tile_bitonic_sort(kops[:n], pops[:n]) for n in probe_ns])
+    need(sort_launches, ("tile_bitonic_sort",), "sort probe")
+    sort_err = 0
+    for n, (ko, po) in zip(probe_ns, sorted_):
+        sort_err = max(sort_err, _max_err(
+            (ko, po), S8.tile_bitonic_sort_torch(kops[:n], pops[:n])))
+        kv = (ko ^ (-(1 << 31))).view(-1, S8.R, S8.C)
+        if not bool((kv[:, 1:] >= kv[:, :-1]).all()):
+            raise AssertionError(f"sort probe N={n}: a column is unsorted")
+    if sort_err:
+        raise AssertionError(f"tile_bitonic_sort on the join's merged "
+                             f"operands: max abs err {sort_err}")
+    print(f"phase 4 main path config5 sort probe: kernel #8 on the join's "
+          f"merged (key, tagged id) operands at N = {probe_ns[0]} and "
+          f"M = {M5}: every column sorted, bit-identical to the plain "
+          f"version; launches {sort_launches}")
+    return kops, pops, probe_ns, sort_err, sort_launches
+
+
+def phase_tx_join(dev, lk, rku):
+    """tx ⋈ accounts from segments, with no filter and with amount > 0."""
+    from knoxdb_tpu_torch.exec.device import DeviceSegment
+    from knoxdb_tpu_torch.exec.scan import SegmentScanner
+
+    nl = len(lk)
+    (tx_s, tx, seg_tx), (ac_s, ac, seg_ac), t_build5 = \
+        _txacct_segments(lk, rku)
+    sc_tx = SegmentScanner(DeviceSegment(seg_tx, dev))
+    sc_ac = SegmentScanner(DeviceSegment(seg_ac, dev))
+    tx_tree = _gt_tree(tx_s, "amount", 0)
+    for name, tree, m in (("no filter", None, np.ones(nl, bool)),
+                          ("amount > 0", tx_tree, tx["amount"] > 0)):
+        got, launches = run_path(lambda: _tx_join(sc_tx, sc_ac, tree))
+        need(launches, ("fused_tree_agg",), f"tx join {name}")
+        npairs = _tx_join_check(f"tx join {name}", got, tx, ac, m)
+        print(f"phase 4 main path tx join accounts ({name}): {nl} x {nl} "
+              f"rows, host build {t_build5:.2f} s; join_side (mask, "
+              f"group_decode_keys, mask_to_indexes, take) -> "
+              f"join_pairs_device(unique_build) -> scan(project=) over "
+              f"include bitsets: {npairs} pairs, amount and bal exact vs "
+              f"numpy; launches {launches}")
+    return sc_tx, sc_ac, tx_tree
 
 
 def main() -> int:
@@ -506,20 +1012,8 @@ def main() -> int:
 
     phase_kernels_vs_plain(dev)
     phase_group_kernels_vs_plain(dev)
-
-    def run_path(call):
-        """Drive one main path with every launch counter at 0 just before
-        it; returns its result and the counters just after."""
-        SK.reset_counts()
-        GK.reset_counts()
-        out = call()
-        torch.cuda.synchronize()
-        return out, {**SK.LAUNCHES, **GK.LAUNCHES}
-
-    def need(launches, names, what):
-        if not all(launches[k] > 0 for k in names):
-            raise AssertionError(f"{what}: a kernel of the path never "
-                                 f"launched: {launches}")
+    phase_sort_kernel_vs_plain(dev)
+    _mark("phase 3")
 
     # ---- phase 4: the main paths ----
     sch, data, seg, t_build = _bench_segment()
@@ -543,13 +1037,16 @@ def main() -> int:
                       for n, r in results.items())
           + f"; exact vs numpy oracle; launches {scan_launches}")
 
+    mat_lo, mat_cols = phase_materialize(sc, sch, data)
+    _mark("scan and materialization")
+
     sch3, data3, seg3, t_build3 = _cfg3_segment(N_PACKS, G3)
     sc3 = SegmentScanner(DeviceSegment(seg3, dev))
     group_launches = {}
     for minmax in (False, True):
         t0 = time.perf_counter()
         out, launches = run_path(lambda: sc3.group_scan(
-            _cfg3_tree(sch3, THR3), "acct", ["bal"], minmax=minmax))
+            _gt_tree(sch3, "bal", THR3), "acct", ["bal"], minmax=minmax))
         t_first = time.perf_counter() - t0
         need(launches, ("fused_tree_agg",)
              + (() if minmax else ("fused_group_partials",)),
@@ -568,7 +1065,7 @@ def main() -> int:
     sch3c, data3c, seg3c, t_build3c = _cfg3_segment(PACKS_SMALL, 1 << 16)
     sc3c = SegmentScanner(DeviceSegment(seg3c, dev))
     out, launches = run_path(lambda: sc3c.group_scan(
-        _cfg3_tree(sch3c, THR3), "acct", ["bal"], minmax=False))
+        _gt_tree(sch3c, "bal", THR3), "acct", ["bal"], minmax=False))
     need(launches, ("fused_tree_agg", "fused_group_partials"), "config3c")
     nsel = _cfg3_check("config3c", data3c, THR3, out, False)
     print(f"phase 4 main path config3c group_scan(minmax=False): "
@@ -590,12 +1087,24 @@ def main() -> int:
           f"{t_build6:.2f} s; counts exact, sums and sums of squares equal "
           f"to the exact python-int sums cast to f64; launches "
           f"{series_launches}")
+
+    _mark("group-by and series")
+
+    # ---- phase 4: config #5 joins, the sort probe, tx ⋈ accounts ----
+    jd, jcap, jpairs, keys5 = phase_joins(dev, NL5)
+    lk, rk, rku = keys5
+    kops, pops, probe_ns, sort_err, sort_launches = \
+        phase_sort_probe(dev, lk, rk)
+    sc_tx, sc_ac, tx_tree = phase_tx_join(dev, lk, rku)
+    _mark("joins, sort probe, tx join")
+
     launches_by_kernel = {
         "fused_range_sum_masked": scan_launches["fused_range_sum_masked"],
         "fused_tree_agg": scan_launches["fused_tree_agg"],
         "fused_group_partials": group_launches["fused_group_partials"],
         "fused_group_moments_partials":
-            series_launches["fused_group_moments_partials"]}
+            series_launches["fused_group_moments_partials"],
+        "tile_bitonic_sort": sort_launches["tile_bitonic_sort"]}
 
     # ---- phase 5: timing at the main paths' shapes ----
     variants = {}
@@ -605,7 +1114,7 @@ def main() -> int:
         variants[kname] = [
             _capture(SK, kname, lambda lo=lo: sc.scan(mk(lo), aggs))
             for lo in (1000, 1001)]
-    trees3 = [_cfg3_tree(sch3, THR3 + k) for k in (0, 1)]
+    trees3 = [_gt_tree(sch3, "bal", THR3 + k) for k in (0, 1)]
     variants["fused_group_partials"] = [
         _capture(GK, "fused_group_partials",
                  lambda t=t: sc3.group_scan(t, "acct", ["bal"], minmax=False))
@@ -740,6 +1249,30 @@ def main() -> int:
     print(f"phase 5 stages config3_minmax: profiled: "
           f"{stages['config3_minmax']['profile']}")
 
+    _mark("phase 5 kernels, calls and stages")
+    probe = time_sort_probe(kops, pops, probe_ns, stream)
+    rec8 = probe[-1]
+    records.append({
+        "name": "tile_bitonic_sort", "route": "cuda",
+        "source": "knoxdb_tpu_torch/csrc/sort_kernels.cu",
+        "replaces": "probes/msort_probe.py:127",
+        "launches": launches_by_kernel["tile_bitonic_sort"],
+        "max_abs_err": sort_err, "ms": rec8["kernel_ms"],
+        "plain_ms": rec8["plain_ms"], "torch_sort_ms": rec8["torch_sort_ms"],
+        "query": f"config5 merged operands, N = {rec8['n']}",
+        "at_2M": probe[0]})
+    stages["joins"] = time_joins(jd, jcap)
+    stages["scan_project_ms"] = _wall_ms(lambda i: sc.scan(
+        _mat_tree(sch, mat_lo + i % 2), [], project=mat_cols), iters=20)
+    stages["tx_join_ms"] = {
+        name: _wall_ms(lambda i: _tx_join(sc_tx, sc_ac, tree), iters=5,
+                       warmup=1)
+        for name, tree in (("no filter", None), ("amount > 0", tx_tree))}
+    print(f"phase 5 scan(project=val, bal) at ~1%: "
+          f"{stages['scan_project_ms']:.3f} ms; tx join accounts whole "
+          f"composition: {stages['tx_join_ms']}")
+
+    _mark("phase 5 sort probe, joins, materialization")
     print(json.dumps({"kernels": records, "stream_bytes_per_s": stream,
                       "stages": stages, "card": card, "n_rows": n_rows}))
     print(f"card: {card}")

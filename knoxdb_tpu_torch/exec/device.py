@@ -13,7 +13,8 @@ same forms the fused scan kernels emit (ops/scan_kernels.py).
 
 This slice matches narrow BITPACK, CONST and DICT code ranges,
 aggregates narrow BITPACK, and decodes narrow BITPACK, CONST and DICT
-groups to value halves or ordered keys for group-by; the other schemes
+groups to value halves or ordered keys for group-by and joins, and to
+keyform limbs for row materialization; the other schemes
 raise NotImplementedError naming the ROADMAP.md item that ports them.
 """
 
@@ -33,7 +34,7 @@ from ..types import FieldType, FilterMode
 
 __all__ = ["DeviceGroup", "DeviceColumn", "DeviceSegment", "group_match",
            "group_masked_sum", "group_masked_minmax", "group_decode_halves",
-           "group_decode_keys"]
+           "group_decode_keys", "group_decode_limbs"]
 
 _TODO_SCHEMES = ("ROADMAP.md queue 1 item 3: DELTA/RLE/RAW/ALP and wide "
                  "matching and aggregates")
@@ -285,3 +286,19 @@ def group_decode_keys(g: DeviceGroup, W: int) -> torch.Tensor:
     [Pg, N] (ops/words.ordered_i64): torch has no uint64, and searches and
     min/max need the order."""
     return WD.ordered_i64(*group_decode_halves(g, W))
+
+
+def group_decode_limbs(g: DeviceGroup, W: int) -> torch.Tensor:
+    """Decode a narrow BITPACK, CONST or DICT group to keyform limbs
+    int32[L, Pg, N], most significant limb first (L = the column's
+    nlimbs, at most 2 here), for row materialization."""
+    if g.wide or g.scheme not in (Scheme.BITPACK, Scheme.CONST, Scheme.DICT):
+        raise NotImplementedError(
+            f"group_decode_limbs: {g.scheme.name} (wide={g.wide}): "
+            f"ROADMAP.md queue 1 item 2: the DELTA, RLE, RAW, ALP and wide "
+            f"group decodes")
+    if g.scheme == Scheme.CONST:
+        v = g.arrays["values"][:, :, :1]                 # [Pg, L, 1]
+        return v.permute(1, 0, 2).expand(-1, -1, W * 32)
+    lo, hi = group_decode_halves(g, W)
+    return lo[None] if g.nlimbs == 1 else torch.stack([hi, lo])

@@ -12,7 +12,11 @@ Per query:
 3. ONE fused scan kernel (ops/scan_kernels.py) runs every fused AND
    leaf's ladder on that mask and emits every fused aggregate's partials;
    aggregates that do not fuse run after it (exec/device.py);
-4. the host combines the per-pack partials exactly with python ints.
+4. the host combines the per-pack partials exactly with python ints;
+5. with project=, the mask becomes a selection vector (ops/compact.py),
+   each projected column is decoded to keyform limbs and gathered at it
+   on the device, and only the selected rows cross to the host
+   (`_materialize`; `scan_stream` does it one window of packs at a time).
 
 Plans are cached on their full signature (segment shapes, the filter
 tree, pruning decisions, aggregates, the fusion plan and the per-group
@@ -30,7 +34,9 @@ from dataclasses import dataclass, field as dc_field
 import numpy as np
 import torch
 
+from ..encode import schemes as S
 from ..encode.schemes import Scheme
+from ..ops import compact as CP
 from ..ops import scan_kernels as SK
 from ..ops import words as WD
 from ..pack.stats import TriState, prune_leaf
@@ -204,13 +210,9 @@ class SegmentScanner:
     def scan(self, tree: Node | None, aggs: list[AggSpec],
              project: list[str] | None = None, limit: int = 0,
              exclude_words=None, include_words=None) -> ScanResult:
-        if project:
-            raise NotImplementedError(
-                "row materialization (project=) is not ported yet: "
-                "ROADMAP.md queue 1 item 5")
         d = self.d
         fn, args = self.prepare(tree, aggs, exclude_words, include_words)
-        _mask, pack_counts, agg_parts = fn(*args)
+        mask_words, pack_counts, agg_parts = fn(*args)
 
         res = ScanResult()
         counts_np = pack_counts.cpu().numpy()
@@ -218,7 +220,38 @@ class SegmentScanner:
         res.stats["packs_scanned"] = d.P
         res.stats["packs_matched"] = int((counts_np > 0).sum())
         self._combine_aggs(res, aggs, agg_parts)
+
+        if project:
+            cap = limit if limit else res.count
+            cap = max(1, 1 << (max(0, cap - 1)).bit_length())
+            cap = min(cap, d.P * d.N)
+            self._materialize(res, mask_words, project, cap, limit)
         return res
+
+    def scan_stream(self, tree: Node | None, project: list[str],
+                    batch_packs: int = 64, exclude_words=None,
+                    include_words=None):
+        """Streaming scan: yields ScanResult row batches one window of
+        batch_packs packs at a time. The filter runs once over the whole
+        segment; each window then compacts and fetches only its own
+        matches, so host memory stays bounded by the window."""
+        d = self.d
+        fn, args = self.prepare(tree, [], exclude_words, include_words)
+        mask_words, pack_counts, _parts = fn(*args)
+        counts = pack_counts.cpu().numpy()
+        for s in range(0, d.P, batch_packs):
+            e = min(s + batch_packs, d.P)
+            n_win = int(counts[s:e].sum())
+            if n_win == 0:
+                continue
+            win = torch.zeros_like(mask_words)
+            win[s:e] = mask_words[s:e]
+            res = ScanResult()
+            res.count = n_win
+            # pow2 cap: at most log2(P*N) distinct plan shapes
+            cap = min(max(1, 1 << (n_win - 1).bit_length()), d.P * d.N)
+            self._materialize(res, win, project, cap, 0)
+            yield res
 
     # ---------------------------------------------------------- group-by --
 
@@ -574,6 +607,96 @@ class SegmentScanner:
             return mask, cnt, parts
 
         return fn
+
+    # --------------------------------------------------- materialization --
+
+    def _materialize(self, res: ScanResult, mask_words, project, cap, limit):
+        """Selection vector of the mask at capacity cap, then each
+        projected column decoded to keyform limbs (bytes columns: their
+        dictionary codes) and gathered at it on the device; only the
+        first min(count, limit, cap) rows cross to the host, which maps
+        them to values."""
+        d = self.d
+        sig = ("mat", d.sig(project), cap)
+        fn = self._fns.get(sig)
+        if fn is None:
+            bytes_cols = {name for name in project
+                          if d.seg.columns[name].field.type.is_bytes_like}
+
+            def codes_of(g, W):
+                return S.decode_bitplanes_u32(g.arrays["planes"], g.width)
+
+            def limbs_of(g, W):
+                return tuple(D.group_decode_limbs(g, W))
+
+            def fn(mask):
+                idx, count = CP.packed_mask_to_indexes(mask, cap)
+                outs = {}
+                for name in project:
+                    if name in bytes_cols:
+                        codes = self._decode_rows(name, codes_of)
+                        outs[name] = CP.take_rows(codes.reshape(1, -1), idx)
+                        continue
+                    dec = torch.stack(self._decode_rows(name, limbs_of))
+                    outs[name] = CP.take_rows(dec.reshape(dec.shape[0], -1),
+                                              idx)
+                return idx, count, outs
+
+            self._fns[sig] = fn
+
+        idx, count, outs = fn(mask_words)
+        n = int(count) if not limit else min(int(count), limit)
+        n = min(n, cap)
+        idx_np = WD.from_words(idx[:n])
+        res.row_ids = idx_np.astype(np.uint64)
+        for name in project:
+            col = d.seg.columns[name]
+            limbs = WD.from_words(outs[name][:, :n])
+            if col.field.type.is_bytes_like:
+                res.rows[name] = self._bytes_values(col, limbs[0], idx_np)
+            elif col.wide:
+                res.rows[name] = self._wide_values(col, limbs, idx_np)
+            elif any(p.scheme == Scheme.ALP for p in col.packs):
+                res.rows[name] = self._float_alp_values(col, limbs, idx_np)
+            else:
+                res.rows[name] = lb.from_keyform(limbs, col.field.type)
+
+    def _bytes_values(self, col, codes: np.ndarray, idx_np: np.ndarray):
+        """Code rows -> byte values via the per-pack host dictionaries,
+        one fancy-index per pack (idx // N gives each row's pack)."""
+        N = self.d.N
+        as_str = col.field.type == FieldType.STRING
+        n = len(codes)
+        out = np.empty(n, object)
+        packs = (idx_np[:n] // N).astype(np.int64)
+        cd = codes.astype(np.int64)
+        for p in np.unique(packs):
+            ep = col.packs[int(p)]
+            # decoded-dict cache on the pack: repeated projections of the
+            # same pack pay the dict decode once
+            key = "_mat_dict_str" if as_str else "_mat_dict_bytes"
+            arr = getattr(ep, key, None)
+            if arr is None:
+                arr = np.empty(len(ep.dict_bytes), object)
+                arr[:] = [b.decode() for b in ep.dict_bytes] if as_str \
+                    else ep.dict_bytes
+                try:
+                    setattr(ep, key, arr)
+                except AttributeError:
+                    pass                      # slotted/frozen pack: skip
+            m = packs == p
+            out[m] = arr[cd[m]]
+        return out
+
+    def _float_alp_values(self, col, limbs, idx_np):
+        raise NotImplementedError(
+            f"materializing {col.field.name}: ALP float packs are not ported "
+            f"yet: ROADMAP.md queue 1 item 4")
+
+    def _wide_values(self, col, limbs, idx_np):
+        raise NotImplementedError(
+            f"materializing {col.field.name}: wide (> 64-bit) columns are not "
+            f"ported yet: ROADMAP.md queue 1 item 2")
 
     # ------------------------------------------------------ host combine --
 

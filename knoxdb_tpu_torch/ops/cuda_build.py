@@ -36,6 +36,7 @@ _SIGNATURES = {
     "knox_fused_range_sum_masked": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I,
                                     _I, _P],
     "knox_group_sums": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P],
+    "knox_tile_bitonic_sort": [_P, _P, _P, _P, _I, _I, _P],
 }
 
 

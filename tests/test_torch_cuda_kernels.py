@@ -1,4 +1,5 @@
-"""CUDA scan and group kernels vs their plain PyTorch versions, on the card.
+"""CUDA scan, group and tile-sort kernels vs their plain PyTorch versions,
+on the card.
 
 The kernels have no CPU mode, so these tests skip without a GPU; run them
 on one with `python -m pytest -m cuda tests/test_torch_cuda_kernels.py`.
@@ -132,3 +133,48 @@ def test_group_wrapper_rejects_bad_operands(cuda):
         GK.fused_group_partials(gid, mask.cpu(), vlo, vhi, 10)
     with pytest.raises(TypeError):
         GK.fused_group_partials(gid, mask, vlo.to(torch.int64), vhi, 10)
+
+
+@pytest.mark.parametrize("ntpose", [0, 8])
+@pytest.mark.parametrize("B,krange", [(4, 8), (32, 1 << 32)])
+def test_tile_sort_kernel_equals_plain(cuda, B, krange, ntpose):
+    """Kernel #8 against its plain version, bit for bit: 4 tiles of keys in
+    [0, 8) (ties everywhere: the payloads' places are the network's) and
+    32 tiles of full-range u32 keys, payload = arange."""
+    from knoxdb_tpu_torch.ops import sort_kernels as S8
+    rng = np.random.default_rng(3)
+    n = B * S8.TILE
+    keys = rng.integers(0, krange, n, dtype=np.uint64).astype(np.uint32)
+    k = WD.to_words(keys, cuda)
+    p = torch.arange(n, dtype=torch.int32, device=cuda)
+    before = S8.LAUNCHES["tile_bitonic_sort"]
+    ko, po = S8.tile_bitonic_sort(k, p, ntpose)
+    torch.cuda.synchronize()
+    assert S8.LAUNCHES["tile_bitonic_sort"] == before + 1
+    rk, rp = S8.tile_bitonic_sort_torch(k, p, ntpose)
+    _same(ko, rk, "keys")
+    _same(po, rp, "pay")
+
+
+def test_tile_sort_wrapper_rejects_bad_operands(cuda):
+    from knoxdb_tpu_torch.ops import sort_kernels as S8
+    k = torch.zeros(S8.TILE, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        S8.tile_bitonic_sort(k, k.cpu())
+    with pytest.raises(ValueError):
+        S8.tile_bitonic_sort(k[:1000], k[:1000])
+
+
+def test_kernels_build_from_csrc(cuda, tmp_path, monkeypatch):
+    """Every kernel library builds from knoxdb_tpu_torch/csrc alone, with
+    nvcc, into an empty build directory."""
+    from knoxdb_tpu_torch.ops import cuda_build
+    monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(cuda_build, "_lib", None)
+    lib = cuda_build.load()
+    built = sorted(p.name.split("_")[0] for p in tmp_path.glob("lib*.so"))
+    srcs = sorted(f"lib{p.stem.split('_')[0]}"
+                  for p in cuda_build.SRC_DIR.glob("*.cu"))
+    assert built == srcs, (built, srcs)
+    for name in cuda_build._SIGNATURES:
+        assert hasattr(lib, name), name

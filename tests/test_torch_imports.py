@@ -15,8 +15,9 @@ def test_port_imports_no_jax():
         "'knoxdb_tpu_torch.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "for m in ('exec.scan', 'exec.groupby', 'exec.device',\n"
-        "          'ops.group_kernels', 'ops.cuda_build', 'encode.schemes'):\n"
+        "for m in ('exec.scan', 'exec.groupby', 'exec.device', 'exec.join',\n"
+        "          'ops.group_kernels', 'ops.cuda_build', 'ops.compact',\n"
+        "          'ops.sort_kernels', 'encode.schemes'):\n"
         "    assert 'knoxdb_tpu_torch.' + m in mods, mods\n"
         "assert 'jax' not in sys.modules and 'knoxdb_tpu' not in sys.modules\n"
         "assert 'torch' in sys.modules\n"
