@@ -15,7 +15,11 @@ exits nonzero:
      invalid gids, 70% masks and all-ones values; the moments kernel with
      the squares of values up to 2^32 - 1. The tile sort (kernel #8):
      4 tiles of keys in [0, 8) and 32 tiles of full-range u32 keys, ntpose
-     0 and 8;
+     0 and 8. The split scan kernels (range_mask_count,
+     masked_plane_popcounts): widths 0, 1, 16, 33 and 64 at 37 packs, every
+     combination of the five flag words, random, empty, full and absent
+     incoming masks, and the one-leaf kernel and both split kernels on the
+     permuted view of a pack-major tensor against the plane-major result;
   4. main paths, each run with every launch counter set to 0 just before
      it and read just after, each exactly equal to a numpy oracle:
      - scan: the benchmark segment (256 packs x 65,536 rows, seed 0xBEEF,
@@ -30,13 +34,25 @@ exits nonzero:
      - group-by config #3c: G = 65,536 at 64 packs, minmax False;
      - series, config #6 (bench_suite.py:438-455, 1024 buckets of 64):
        series_scan moments at 64 packs, counts, sums and sums of squares;
-     - joins, config #5 (bench_suite.py:303-418) at nl = nr = 4,194,304:
+     - config #2 (bench_suite.py:55-95, seed 0xC0FFEE, 256 x 65,536 rows:
+       id pk, val u64, acct bytes of 64 values, bal i64, and one more
+       column fee u64 that is zero in every fourth pack): the source's
+       three-leaf AND (it fuses whole); an OR subtree (the ladder kernel
+       twice); fee RANGE with sum(fee), sum(id), min(id), max(id) (the
+       ladder and popcount kernels on the BITPACK group, the CONST
+       branches, the DELTA sum and min/max); id RANGE (the DELTA matcher);
+       scan(project=id, val);
+     - top-k, config #4 (bench_suite.py:243-300, 256 packs: big INT128 in
+       wide BITPACK packs, val u64, the DELTA pk): segment_topk of the 100
+       largest big and val under val LT 50000 (the bit descent) and of id
+       (the stable-sort fallback), keys and ids against numpy;
+     - joins, config #5 (bench_suite.py:303-418) at nl = nr = 1,048,576:
        join_pairs_device INNER and LEFT, unique_build with keys32, a build
        key run wider than SHIFT_S (the ladder's fallback), join_pairs_core
        with a cap retry and join_count_device, each an exact pair multiset;
      - the sort probe: kernel #8 on the join's merged (key, tagged id)
-       operands at N = 2,097,152 and at M = 8,388,608;
-     - tx join accounts from two segments of 4,194,304 rows, composed as
+       operands at M = 2,097,152;
+     - tx join accounts from two segments of 1,048,576 rows, composed as
        engine/table.py's join_side and rows_at_positions do, with no
        filter and with amount > 0: every pair's amount and bal;
   5. timing (CUDA events, medians over alternating query variants, with
@@ -51,7 +67,16 @@ exits nonzero:
      torch.sort on the join's operands with the probe's projection
      (msort_probe.py:221-236) from the card's own costs; each join
      core's wall and its device time in sorts, in the D2H copy and in the
-     rest; scan(project=) and the tx join's wall.
+     rest; scan(project=) and the tx join's wall; the split kernels on
+     config #1's val planes beside the one-leaf kernel, warm and L2-flushed
+     and at the pack-major view; wall and device idle share of every
+     config #2 and config #4 call; top-k's stages (add_const_planes,
+     topk_select, the gathers with the projection) and kernel launches per
+     call; the DELTA decode's transpose and prefix sum. Every kernel's
+     record carries its bound (bytes over the published HBM rate against
+     word operations over the published float32 rate; kernel #8 also its
+     shared-memory traffic) and, where one PyTorch call computes the same
+     function, that call's time.
 
 The last three lines are the kernels' JSON record, the card, and
 {"ok": true, "device": {...}}. Needs a CUDA device and the repository.
@@ -73,11 +98,15 @@ SEED = 0xBEEF
 ITERS = 60          # timed iterations per measurement (after warm-up)
 _SOURCES = {"fused_range_sum_masked": "knoxdb_tpu_torch/csrc/scan_kernels.cu",
             "fused_tree_agg": "knoxdb_tpu_torch/csrc/scan_kernels.cu",
+            "range_mask_count": "knoxdb_tpu_torch/csrc/scan_kernels.cu",
+            "masked_plane_popcounts": "knoxdb_tpu_torch/csrc/scan_kernels.cu",
             "fused_group_partials": "knoxdb_tpu_torch/csrc/group_kernels.cu",
             "fused_group_moments_partials":
                 "knoxdb_tpu_torch/csrc/group_kernels.cu"}
 _REPLACES = {"fused_range_sum_masked": "knoxdb_tpu/ops/pallas_scan.py:126",
              "fused_tree_agg": "knoxdb_tpu/ops/pallas_scan.py:259",
+             "range_mask_count": "probes/ps_variants.py:85",
+             "masked_plane_popcounts": "probes/ps_variants.py:94",
              "fused_group_partials": "knoxdb_tpu/ops/pallas_group.py:95",
              "fused_group_moments_partials":
                  "knoxdb_tpu/ops/pallas_group.py:116"}
@@ -86,6 +115,22 @@ G3 = 1000
 THR3 = -((1 << 40) * 49) // 50      # config #3's 99%-pass filter
 PACKS_SMALL = 64                    # bench_suite.py's default --packs
 G6, T6, IV6 = 1024, 1_000_000, 64
+# The card's published peaks (NVIDIA's H100 SXM data sheet): HBM3, and
+# for 32-bit integer word operations half the 67 T/s float32 rate outside
+# the tensor cores (an SM has 64 int32 lanes beside its 128 float32
+# lanes); shared memory moves 128 B per clock per SM on 132 SMs at the
+# 1.755 GHz boost clock.
+HBM_BPS = 3.35e12
+OPS_PER_S = 33.5e12
+SMEM_BPS = 132 * 128 * 1.755e9
+
+
+def _bound(nbytes: float, nops: float, smem_bytes: float = 0.0):
+    """The least time the card could take: (ms, "bytes" | "operations")."""
+    t_bytes = max(nbytes / HBM_BPS, smem_bytes / SMEM_BPS)
+    t_ops = nops / OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, \
+        "bytes" if t_bytes >= t_ops else "operations"
 
 
 def _card() -> str:
@@ -163,6 +208,65 @@ def phase_kernels_vs_plain(dev):
     print(f"phase 3 kernel=plain: {ncase} random cases bit-identical "
           f"(P={P}, W={W}, widths 0-64, 1-3 leaves, sum and min/max specs, "
           f"an empty pack)")
+
+
+def phase_split_kernels_vs_plain(dev):
+    """range_mask_count and masked_plane_popcounts against their plain
+    versions, bit for bit, and every strided entry at the pack-major view
+    against its plane-major result."""
+    import torch
+    from knoxdb_tpu_torch.ops import scan_kernels as SK
+    from knoxdb_tpu_torch.ops import words as WD
+    from knoxdb_tpu_torch.testing import random_tree_case
+
+    rng = np.random.default_rng(SEED + 5)
+    P, W = 37, 2048                      # Pg not a multiple of 8
+    ncase = nview = 0
+    for width in (0, 1, 16, 33, 64):
+        planes, ops, _lf, mask_in, _fw, _sp = random_tree_case(
+            rng, (width,), P, W, 1, (), empty_pack=False)
+        lo_b, hi_b, flags = ops[0]
+        # every combination of the five flag words, one per pack
+        flags = flags.copy()
+        for j in range(P):
+            for c in range(5):
+                flags[j, c] = 0xFFFFFFFF if (j >> c) & 1 else 0
+        pt = WD.to_words(planes[0], dev)
+        cons = tuple(WD.to_words(a, dev) for a in (lo_b, hi_b, flags))
+        masks = {"random": mask_in, "empty": np.zeros_like(mask_in),
+                 "full": np.full_like(mask_in, 0xFFFFFFFF), "none": None}
+        for mname, m in masks.items():
+            mt = None if m is None else WD.to_words(m, dev)
+            got = SK.range_mask_count(pt, *cons, mt, width)
+            err = _max_err(got, SK.range_mask_count_torch(pt, *cons, mt,
+                                                          width))
+            if mt is not None:
+                err = max(err, _max_err(
+                    SK.masked_plane_popcounts(pt, mt, width),
+                    SK.masked_plane_popcounts_torch(pt, mt, width)))
+            if err:
+                raise AssertionError(f"split kernels w={width} mask={mname}: "
+                                     f"max abs err {err}")
+            ncase += 1
+        if width:
+            pk = pt.permute(1, 0, 2).contiguous().permute(1, 0, 2)
+            if width > 1 and pk.is_contiguous():
+                raise AssertionError("the pack-major view is a copy")
+            mt = WD.to_words(mask_in, dev)
+            for fn, args in (
+                    (SK.fused_range_sum_masked, (*cons, mt, width)),
+                    (SK.range_mask_count, (*cons, mt, width)),
+                    (SK.masked_plane_popcounts, (mt, width))):
+                err = _max_err(fn(pk, *args), fn(pt, *args))
+                if err:
+                    raise AssertionError(f"{fn.__name__} at the pack-major "
+                                         f"view, w={width}: {err}")
+                nview += 1
+    torch.cuda.synchronize()
+    print(f"phase 3 split kernels=plain: {ncase} cases bit-identical "
+          f"(P={P}, W={W}, widths 0, 1, 16, 33, 64, all 32 flag "
+          f"combinations, random / empty / full / absent masks); {nview} "
+          f"pack-major-view results = plane-major (kernels #1, 5a, 5b)")
 
 
 def phase_group_kernels_vs_plain(dev):
@@ -446,15 +550,16 @@ def _cfg6_check(data, out):
     return int(cnt.sum())
 
 
-def _capture(mod, name, call):
+def _capture(mod, name, call, every=False):
     """Run call() with mod.name wrapped; returns the first operands the
-    main path handed that wrapper (the wrappers are looked up on their
+    main path handed that wrapper, or with every=True the operands of
+    each of its calls in order (the wrappers are looked up on their
     module at call time)."""
     orig = getattr(mod, name)
     got = []
 
     def rec(*args):
-        if not got:
+        if every or not got:
             got.append(args)
         return orig(*args)
 
@@ -463,7 +568,7 @@ def _capture(mod, name, call):
         call()
     finally:
         setattr(mod, name, orig)
-    return got[0]
+    return got if every else got[0]
 
 
 def _wall_ms(fn, iters=ITERS, warmup=3):
@@ -497,9 +602,11 @@ def _profile(fn, n=10):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     by = {}
+    nev = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
             by[e.name] = by.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+            nev += 1
     busy = sum(by.values())
     top = sorted(by.items(), key=lambda kv: -kv[1])[:6]
     cats = {"sort_ms": 0.0, "d2h_ms": 0.0, "other_ms": 0.0}
@@ -512,14 +619,15 @@ def _profile(fn, n=10):
         else:
             cats["other_ms"] += ms / n
     return {"wall_ms": wall / n, "device_ms": busy / n,
-            "idle_share": 1.0 - busy / wall, **cats,
+            "idle_share": 1.0 - busy / wall,
+            "device_ops_per_call": nev / n, **cats,
             "top": [(k[:70], v / n) for k, v in top]}
 
 
 # ------------------------------------------------ joins and tile sorts ---
 
 JOIN_SEED = 0xC0FFEE                  # bench_suite.py:642, config 5 alone
-NL5 = PACK_SIZE * N_PACKS // 4        # bench_suite.py:320 at 256 packs
+NL5 = PACK_SIZE * N_PACKS // 16       # bench_suite.py:320 at its 64 packs
 TAGBIT = 1 << 31
 
 
@@ -934,7 +1042,7 @@ def phase_sort_probe(dev, lk, rk):
     from knoxdb_tpu_torch.ops import sort_kernels as S8
     kops, pops = _merged_operands(lk, rk, dev)
     M5 = kops.shape[0]
-    probe_ns = (min(32 * S8.TILE, M5), M5)
+    probe_ns = tuple(sorted({min(32 * S8.TILE, M5), M5}))
     sorted_, sort_launches = run_path(
         lambda: [S8.tile_bitonic_sort(kops[:n], pops[:n]) for n in probe_ns])
     need(sort_launches, ("tile_bitonic_sort",), "sort probe")
@@ -979,6 +1087,491 @@ def phase_tx_join(dev, lk, rku):
               f"numpy; launches {launches}")
     return sc_tx, sc_ac, tx_tree
 
+# ------------------------------------- config #2 and config #4 (top-k) ---
+
+def _cfg2_segment():
+    """BASELINE config #2 (bench_suite.py:55-95, seed 0xC0FFEE) at 256
+    packs, with one more column drawn after the source's: fee u64, zero in
+    every pack whose index is a multiple of 4 and uniform in [0, 2^20)
+    elsewhere, so that it splits into a CONST and a BITPACK group. `ai`
+    keeps each row's account number for the oracle."""
+    from knoxdb_tpu_torch.pack.segment import build_segment
+    from knoxdb_tpu_torch.schema.schema import Builder
+    from knoxdb_tpu_torch.types import FieldType
+
+    rng = np.random.default_rng(GROUP_SEED)
+    n = PACK_SIZE * N_PACKS
+    sch = (Builder("c2").pk("id")
+           .add("val", FieldType.UINT64)
+           .add("acct", FieldType.BYTES)
+           .add("bal", FieldType.INT64)
+           .add("fee", FieldType.UINT64)
+           .finish())
+    accts = np.array([b"acct-%03d" % i for i in range(64)], object)
+    data = {"id": np.arange(1, n + 1, dtype=np.uint64),
+            "val": rng.integers(0, 1 << 16, n, dtype=np.uint64)}
+    ai = rng.integers(0, 64, n)
+    data["acct"] = accts[ai]
+    data["bal"] = rng.integers(-1 << 40, 1 << 40, n, dtype=np.int64)
+    fee = rng.integers(0, 1 << 20, n, dtype=np.uint64)
+    fee[(np.arange(n) // PACK_SIZE) % 4 == 0] = 0
+    data["fee"] = fee
+    t0 = time.perf_counter()
+    seg = build_segment(sch, data, pack_size=PACK_SIZE)
+    data["ai"] = ai
+    return sch, data, seg, time.perf_counter() - t0
+
+
+def _isum(a) -> int:
+    """Exact python-int sum of an integer array (split at 32 bits)."""
+    a = np.asarray(a)
+    if a.dtype == np.uint64:
+        return (int((a >> np.uint64(32)).sum(dtype=np.uint64)) << 32) \
+            + int((a & np.uint64(0xFFFFFFFF)).sum(dtype=np.uint64))
+    return (int((a >> 32).sum(dtype=np.int64)) << 32) \
+        + int((a & 0xFFFFFFFF).sum(dtype=np.int64))
+
+
+def _cfg2_queries(sch, n):
+    """name -> (tree(k), aggs, oracle mask(data, k), kernels that must
+    launch); k = 0 or 1 shifts a literal so that timed calls alternate."""
+    from knoxdb_tpu_torch.exec.scan import AggSpec
+    from knoxdb_tpu_torch.query.filter import Filter, and_, leaf, or_
+    from knoxdb_tpu_torch.types import FilterMode as FM
+
+    def lf(name, mode, v):
+        return leaf(Filter(sch.field(name), mode, v))
+
+    acct = b"acct-042"
+    cnt, sm = AggSpec("count"), AggSpec
+    return {
+        "source AND": (
+            lambda k: and_(lf("val", FM.RANGE, (1000 + k, 50000)),
+                           lf("acct", FM.EQ, acct),
+                           lf("bal", FM.GT, 0)).optimize(),
+            [cnt, sm("sum", "bal")],
+            lambda d, k: ((d["val"] >= 1000 + k) & (d["val"] <= 50000)
+                          & (d["ai"] == 42) & (d["bal"] > 0)),
+            ("fused_tree_agg",)),
+        "OR subtree": (
+            lambda k: and_(or_(lf("val", FM.RANGE, (1000 + k, 50000)),
+                               lf("bal", FM.LT, -(1 << 39))),
+                           lf("acct", FM.EQ, acct)).optimize(),
+            [cnt, sm("sum", "bal")],
+            lambda d, k: ((((d["val"] >= 1000 + k) & (d["val"] <= 50000))
+                           | (d["bal"] < -(1 << 39))) & (d["ai"] == 42)),
+            ("fused_tree_agg", "range_mask_count")),
+        "fee RANGE": (
+            lambda k: lf("fee", FM.RANGE, (1000 + k, 500000)).optimize(),
+            [cnt, sm("sum", "fee"), sm("sum", "id"), sm("min", "id"),
+             sm("max", "id")],
+            lambda d, k: (d["fee"] >= 1000 + k) & (d["fee"] <= 500000),
+            ("fused_tree_agg", "range_mask_count",
+             "masked_plane_popcounts")),
+        "id RANGE": (
+            lambda k: lf("id", FM.RANGE, (n // 4 + k, n // 2)).optimize(),
+            [cnt, sm("sum", "val")],
+            lambda d, k: (d["id"] >= n // 4 + k) & (d["id"] <= n // 2),
+            ("fused_tree_agg",)),
+    }
+
+
+def phase_config2(dev):
+    """Config #2's source query and the unfused-path queries, each exact
+    against numpy with its kernels' launch counters above 0."""
+    from knoxdb_tpu_torch.exec.device import DeviceSegment
+    from knoxdb_tpu_torch.exec.scan import SegmentScanner
+
+    sch, data, seg, t_build = _cfg2_segment()
+    n = seg.nrows_total
+    sc = SegmentScanner(DeviceSegment(seg, dev))
+    queries = _cfg2_queries(sch, n)
+    launches_of = {}
+    for name, (mk, aggs, oracle, kernels) in queries.items():
+        res, launches = run_path(lambda: sc.scan(mk(0), aggs))
+        need(launches, kernels, f"config2 {name}")
+        m = oracle(data, 0)
+        want = {}
+        for a in aggs:
+            col = data[a.field][m] if a.field else None
+            want[(a.op, a.field)] = (
+                int(m.sum()) if a.op == "count" else _isum(col)
+                if a.op == "sum" else int(getattr(col, a.op)()))
+        if res.count != int(m.sum()) or res.aggs != want:
+            raise AssertionError(f"config2 {name}: {res.count} {res.aggs} "
+                                 f"!= {want}")
+        launches_of[name] = launches
+        print(f"phase 4 main path config2 {name}: {n} rows, count="
+              f"{res.count} aggs={res.aggs}; exact vs numpy; launches "
+              f"{launches}")
+    schemes = {f: [(g.scheme.name, g.width, g.npacks)
+                   for g in sc.d.column(f).groups]
+               for f in ("id", "val", "acct", "bal", "fee")}
+    if [g[0] for g in schemes["fee"]] != ["CONST", "BITPACK"] \
+            or schemes["id"][0][0] != "DELTA":
+        raise AssertionError(f"config2 schemes: {schemes}")
+    # the DELTA projection: scan(project=id, val) of ~1% of the rows
+    lo = 1000
+    res, launches = run_path(lambda: sc.scan(
+        _mat_tree(sch, lo), [], project=["id", "val"]))
+    need(launches, ("fused_tree_agg",), "config2 projection")
+    rows = np.flatnonzero((data["val"] >= lo) & (data["val"] <= lo + 655))
+    if not (np.array_equal(res.row_ids, rows.astype(np.uint64))
+            and np.array_equal(res.rows["id"], data["id"][rows])
+            and np.array_equal(res.rows["val"], data["val"][rows])):
+        raise AssertionError("config2 scan(project=id, val): rows differ")
+    print(f"phase 4 main path config2 scan(project=id, val): val RANGE "
+          f"({lo}, {lo + 655}), {len(rows)} rows, ids (DELTA) and values "
+          f"exact vs numpy; host build {t_build:.2f} s; column groups "
+          f"{schemes}; launches {launches}")
+    return sc, sch, queries, launches_of
+
+
+def _cfg4_segment():
+    """BASELINE config #4 (bench_suite.py:243-300, seed 0xC0FFEE) at 256
+    packs (its default 64 x 4): big INT128 = block * 2^70 + (x << 9) with x
+    uniform in +-2^50 and block the pack index, val u64 in [0, 2^16), the
+    sequential pk. The source builds big from 16.8 M python ints and
+    encodes it row by row (minutes on one host core); here the same values
+    go from (block, x) to the same packs with numpy: per pack the wide
+    base as a python int and the pack-relative keys as u64, as
+    pack/segment._encode_wide gives them."""
+    from knoxdb_tpu_torch.encode import schemes as S
+    from knoxdb_tpu_torch.encode import select as sel
+    from knoxdb_tpu_torch.pack.segment import (EncodedColumn, Segment,
+                                                build_segment)
+    from knoxdb_tpu_torch.pack.stats import FieldStats
+    from knoxdb_tpu_torch.schema.schema import Builder
+    from knoxdb_tpu_torch.types import FieldType
+
+    rng = np.random.default_rng(GROUP_SEED)
+    n = PACK_SIZE * N_PACKS
+    x = rng.integers(-1 << 50, 1 << 50, n)
+    data = {"id": np.arange(1, n + 1, dtype=np.uint64),
+            "val": rng.integers(0, 1 << 16, n, dtype=np.uint64), "x": x}
+    sch = (Builder("c4").pk("id").add("big", FieldType.INT128)
+           .add("val", FieldType.UINT64).finish())
+    narrow = (Builder("c4n").pk("id").add("val", FieldType.UINT64).finish())
+    t0 = time.perf_counter()
+    seg_n = build_segment(narrow, {k: data[k] for k in ("id", "val")},
+                          pack_size=PACK_SIZE)
+    packs, bases, mins, maxs = [], [], [], []
+    low = (x << 9).reshape(N_PACKS, PACK_SIZE)
+    for b in range(N_PACKS):
+        mn, mx = int(low[b].min()), int(low[b].max())
+        rel = (low[b] - mn).astype(np.uint64)
+        w = sel.round_width((mx - mn).bit_length())
+        packs.append(S.encode_bitpack(rel, 4, 0, w, PACK_SIZE))
+        bases.append(b * (1 << 70) + mn + (1 << 127))      # keyform
+        mins.append(bases[-1])
+        maxs.append(bases[-1] + mx - mn)
+    cols = dict(seg_n.columns)
+    cols["big"] = EncodedColumn(sch.field("big"), packs, wide=True,
+                                wide_bases=bases)
+    for name in ("id", "val"):
+        cols[name] = EncodedColumn(sch.field(name), cols[name].packs,
+                                   wide=False)
+    stats = seg_n.stats
+    stats.fields["big"] = FieldStats(np.array(mins, object),
+                                     np.array(maxs, object))
+    seg = Segment(sch, PACK_SIZE, n, seg_n.nrows, cols, stats)
+    return sch, data, seg, time.perf_counter() - t0
+
+
+def _cfg4_oracle(data, m, field, k=100):
+    """The k largest keyform keys of `field` over rows m, descending, and
+    for checking a returned row: its keyform key."""
+    rows = np.flatnonzero(m)
+    if field == "big":
+        block, x = rows // PACK_SIZE, data["x"][rows]
+        top = rows[np.lexsort((x, block))[::-1][:k]]
+    else:
+        top = rows[np.argsort(data[field][rows], kind="stable")[::-1][:k]]
+    return [_cfg4_key(data, field, int(r)) for r in top]
+
+
+def _cfg4_key(data, field, r: int) -> int:
+    if field == "big":
+        return (r // PACK_SIZE) * (1 << 70) + (int(data["x"][r]) << 9) \
+            + (1 << 127)
+    return int(data[field][r])
+
+
+def phase_config4(dev):
+    """segment_topk(val LT 50000, order, 100, desc, project=id) ordered by
+    big and by val (the bit descent) and by id (the fallback): the keys
+    equal the sorted numpy answer, and every returned row carries its key,
+    passes the filter, is returned once and projects its own id."""
+    from knoxdb_tpu_torch.exec import sort as TS
+    from knoxdb_tpu_torch.exec.device import DeviceSegment
+    from knoxdb_tpu_torch.exec.scan import SegmentScanner
+
+    sch, data, seg, t_build = _cfg4_segment()
+    sc = SegmentScanner(DeviceSegment(seg, dev))
+    m = data["val"] < 50000
+
+    def tree(k=0):
+        from knoxdb_tpu_torch.query.filter import Filter, leaf
+        from knoxdb_tpu_torch.types import FilterMode
+        return leaf(Filter(sch.field("val"), FilterMode.LT,
+                           50000 - k)).optimize()
+
+    for field in ("big", "val", "id"):
+        fast = TS._topk_fast_plan(sc.d, seg.columns[field], field)
+        if (fast is None) != (field == "id"):
+            raise AssertionError(f"config4 {field}: route {fast is None}")
+        (keys, rows, nv), launches = run_path(lambda: TS.segment_topk(
+            sc, tree(), field, 100, desc=True, project=["id"]))
+        need(launches, ("fused_tree_agg",), f"config4 top-k by {field}")
+        want = _cfg4_oracle(data, m, field)
+        idx = rows["__idx"].astype(np.int64)
+        ids = (rows["id"][0].astype(np.uint64) << np.uint64(32)) \
+            | rows["id"][1].astype(np.uint64)
+        if not (keys == want and nv == 100 and len(set(idx.tolist())) == 100
+                and m[idx].all() and np.array_equal(ids, data["id"][idx])
+                and [_cfg4_key(data, field, int(r)) for r in idx] == keys):
+            raise AssertionError(f"config4 top-100 by {field}: keys or ids "
+                                 f"differ from numpy: {keys[:3]} {want[:3]}")
+        print(f"phase 4 main path config4 segment_topk by {field} "
+              f"({'fallback sort' if fast is None else f'bit descent, {fast[0]} planes'}"
+              f"): {seg.nrows_total} rows, {int(m.sum())} pass val LT 50000, "
+              f"top 100 desc: keys and ids exact vs numpy (first key "
+              f"{keys[0]}); host build {t_build:.2f} s; launches {launches}")
+    # a RANGE leaf over the wide column with count and sum(big): the bounds
+    # relate to each pack's python-int base on the host, the ladder and
+    # the popcount kernel run on the 64 pack-relative planes
+    from knoxdb_tpu_torch.exec.scan import AggSpec
+    from knoxdb_tpu_torch.query.filter import Filter, leaf
+    from knoxdb_tpu_torch.types import FilterMode
+    b_lo, b_hi = N_PACKS // 4, 3 * N_PACKS // 4 - 1
+
+    def big_tree(k=0):
+        return leaf(Filter(sch.field("big"), FilterMode.RANGE,
+                           (b_lo << 70, (b_hi << 70) - k))).optimize()
+
+    big_aggs = [AggSpec("count"), AggSpec("sum", "big")]
+    res, launches = run_path(lambda: sc.scan(big_tree(), big_aggs))
+    need(launches, ("range_mask_count", "masked_plane_popcounts"),
+         "config4 big RANGE")
+    block, x = np.arange(seg.nrows_total) // PACK_SIZE, data["x"]
+    mb = ((block > b_lo) & (block < b_hi)) | ((block == b_lo) & (x >= 0)) \
+        | ((block == b_hi) & (x <= 0))
+    want = {("count", ""): int(mb.sum()),
+            ("sum", "big"): (_isum(block[mb]) << 70) + (_isum(x[mb]) << 9)}
+    if res.count != int(mb.sum()) or res.aggs != want:
+        raise AssertionError(f"config4 big RANGE: {res.count} {res.aggs} != "
+                             f"{want}")
+    print(f"phase 4 main path config4 scan(big RANGE ({b_lo} * 2^70, {b_hi} "
+          f"* 2^70), count, sum(big)) over the wide BITPACK column: count="
+          f"{res.count} sum={res.aggs[('sum', 'big')]}; exact vs python "
+          f"ints; launches {launches}")
+    return sc, tree, (big_tree, big_aggs)
+
+
+def _split_need(name, args):
+    """Bytes the split kernel must move for these operands (every plane
+    once, the mask in where there is one, the mask out for 5a) and its
+    word operations (the ladder's 8, the popcount's 2 per plane word)."""
+    planes = args[0]
+    mask = args[4] if name == "range_mask_count" else args[1]
+    mw = planes.shape[1] * planes.shape[2] * 4
+    nbytes = planes.numel() * 4 + (mw if mask is not None else 0) \
+        + (mw if name == "range_mask_count" else 0)
+    nops = (8 if name == "range_mask_count" else 2) * planes.numel()
+    return nbytes, nops
+
+
+def time_split_kernels(var1, path_ops, launches, stream, flush):
+    """Kernels 5a and 5b. First on every set of operands that the main
+    paths handed them (path_ops: name -> [(query, args), ...]): kernel
+    = plain bit for bit, then warm, L2-flushed and plain times and the
+    bound from those operands; each kernel's record carries the numbers of
+    its first set and lists the others. Then on config #1's val planes
+    beside the one-leaf kernel, and all three at the permuted view of a
+    pack-major copy of the same planes. var1: the operands the main path
+    gave fused_range_sum_masked. Returns the records and the layout
+    table."""
+    import torch
+    from knoxdb_tpu_torch.ops import scan_kernels as SK
+
+    plain_of = {"range_mask_count": SK.range_mask_count_torch,
+                "masked_plane_popcounts": SK.masked_plane_popcounts_torch}
+    records = {}
+    for name, sets in path_ops.items():
+        kf, ref = getattr(SK, name), plain_of[name]
+        at = []
+        for query, args in sets:
+            err = _max_err(kf(*args), ref(*args))
+            if err:
+                raise AssertionError(f"{name} on the operands of {query}: "
+                                     f"max abs err {err}")
+            nbytes, nops = _split_need(name, args)
+            bound_ms, bound_by = _bound(nbytes, nops)
+            ms = _event_ms(lambda i: kf(*args))
+            fl = _event_ms(lambda i: kf(*args),
+                           before=lambda i: flush.fill_(i))
+            mask = args[4] if name == "range_mask_count" else args[1]
+            at.append({
+                "query": query,
+                "planes": list(args[0].shape), "mask_in": mask is not None,
+                "max_abs_err": err, "ms": ms, "ms_l2_flushed": fl,
+                "plain_ms": _event_ms(lambda i: ref(*args), iters=20),
+                "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
+                "bound_stream_ms": nbytes / stream * 1e3,
+                "pct_of_stream_bw": 100.0 * nbytes / (ms / 1e3) / stream,
+                "pct_of_stream_bw_l2_flushed":
+                    100.0 * nbytes / (fl / 1e3) / stream})
+        records[name] = {
+            "name": name, "route": "cuda", "source": _SOURCES[name],
+            "replaces": _REPLACES[name], "launches": launches[name],
+            **at[0], "library_ms": None, "other_operands": at[1:]}
+        print(f"phase 5 {name} on its main paths' operands, kernel = "
+              f"plain bit for bit; ms warm / L2 flushed / plain / bound: "
+              + "; ".join(
+                  f"{r['query']} planes {r['planes']}"
+                  f"{' under a mask' if r['mask_in'] else ''}: "
+                  f"{r['ms']:.4f} / {r['ms_l2_flushed']:.4f} / "
+                  f"{r['plain_ms']:.4f} / {r['bound_ms']:.4f}" for r in at))
+
+    planes, lo_b, hi_b, flags, mask_in, width = var1
+    pk = planes.permute(1, 0, 2).contiguous().permute(1, 0, 2)
+    mask, _cnt = SK.range_mask_count(planes, lo_b, hi_b, flags, mask_in,
+                                     width)
+    torch.cuda.synchronize()
+    calls = {
+        "fused_range_sum_masked": (
+            lambda p: SK.fused_range_sum_masked(p, lo_b, hi_b, flags,
+                                                mask_in, width),
+            lambda: SK.fused_range_sum_masked_torch(planes, lo_b, hi_b,
+                                                    flags, mask_in, width)),
+        "range_mask_count": (
+            lambda p: SK.range_mask_count(p, lo_b, hi_b, flags, mask_in,
+                                          width),
+            lambda: SK.range_mask_count_torch(planes, lo_b, hi_b, flags,
+                                              mask_in, width)),
+        "masked_plane_popcounts": (
+            lambda p: SK.masked_plane_popcounts(p, mask, width),
+            lambda: SK.masked_plane_popcounts_torch(planes, mask, width)),
+    }
+    layouts = {}
+    for name, (kf, ref) in calls.items():
+        err = max(_max_err(kf(planes), ref()), _max_err(kf(pk), ref()))
+        if err:
+            raise AssertionError(f"{name} on config1's val planes: {err}")
+        t = {"plane_major_ms": _event_ms(lambda i: kf(planes)),
+             "pack_major_ms": _event_ms(lambda i: kf(pk)),
+             "plane_major_l2_flushed_ms": _event_ms(
+                 lambda i: kf(planes), before=lambda i: flush.fill_(i)),
+             "pack_major_l2_flushed_ms": _event_ms(
+                 lambda i: kf(pk), before=lambda i: flush.fill_(i))}
+        layouts[name] = t
+        if name in records:
+            records[name]["on_config1_val_planes"] = {
+                **t, "plain_ms": _event_ms(lambda i: ref(), iters=20)}
+    print("phase 5 split kernels on config1's val planes under its mask, ms "
+          "plane-major / pack-major view (L2 flushed: the same): "
+          + "; ".join(
+              f"{k}: {v['plane_major_ms']:.4f} / {v['pack_major_ms']:.4f} "
+              f"({v['plane_major_l2_flushed_ms']:.4f} / "
+              f"{v['pack_major_l2_flushed_ms']:.4f})"
+              for k, v in layouts.items())
+          + "; plain: " + ", ".join(
+              f"{k} {r['on_config1_val_planes']['plain_ms']:.4f}"
+              for k, r in records.items()))
+    return list(records.values()), layouts
+
+
+def time_config2(sc2, sch2, queries2):
+    """Wall (median of 20 calls alternating two literals) and profiled
+    device time, idle share and device operations per call of every
+    config #2 query, and of scan(project=id, val)."""
+    out = {}
+    for name, (mk, aggs, _oracle, _k) in queries2.items():
+        fn = lambda i, mk=mk, aggs=aggs: sc2.scan(mk(i % 2), aggs)  # noqa
+        out[name] = {"wall_ms": _wall_ms(fn, iters=20),
+                     "profile": _profile(fn, n=5)}
+    fn = lambda i: sc2.scan(_mat_tree(sch2, 1000 + i % 2), [],      # noqa
+                            project=["id", "val"])
+    out["project id, val"] = {"wall_ms": _wall_ms(fn, iters=10),
+                              "profile": _profile(fn, n=5)}
+    for name, r in out.items():
+        print(f"phase 5 config2 {name}: wall {r['wall_ms']:.3f} ms; "
+              f"profiled: {r['profile']}")
+    return out
+
+
+def time_delta_decode(sc2):
+    """The DELTA pk's decode at [256, 65,536]: the bit transpose, the
+    row-wise int64 prefix sum alone, and the whole group decode."""
+    import torch
+    from knoxdb_tpu_torch.encode import schemes as S
+    from knoxdb_tpu_torch.exec import device as D
+
+    g = sc2.d.column("id").groups[0]
+    zz = S.decode_bitplanes_u64(g.arrays["planes"], g.width)
+    torch.cuda.synchronize()
+    out = {"width": g.width, "npacks": g.npacks,
+           "transpose_ms": _event_ms(lambda i: S.decode_bitplanes_u64(
+               g.arrays["planes"], g.width), iters=20),
+           "cumsum_ms": _event_ms(lambda i: torch.cumsum(zz, dim=-1),
+                                  iters=20),
+           "group_decode_halves_ms": _event_ms(
+               lambda i: D.group_decode_halves(g, sc2.d.W), iters=20)}
+    print(f"phase 5 DELTA decode of id: {out}")
+    return out
+
+
+def time_topk(sc4, tree4):
+    """Config #4's top-k: wall of the whole call by big, val and id, the
+    profiled window (device time, idle share, device operations per call),
+    and for the bit descent by big the device time of each stage alone."""
+    import torch
+    from knoxdb_tpu_torch.exec import sort as TS
+    from knoxdb_tpu_torch.ops import bitslice as B
+    from knoxdb_tpu_torch.ops import compact as CP
+
+    d = sc4.d
+    out = {}
+    for field in ("big", "val", "id"):
+        fn = lambda i, f=field: TS.segment_topk(                    # noqa
+            sc4, tree4(i % 2), f, 100, desc=True, project=["id"])
+        out[field] = {"wall_ms": _wall_ms(fn, iters=10, warmup=2),
+                      "profile": _profile(fn, n=5)}
+        print(f"phase 5 config4 top-k by {field}: wall "
+              f"{out[field]['wall_ms']:.3f} ms "
+              f"({d.P * d.N / out[field]['wall_ms'] / 1e6:.2f} G rows/s); "
+              f"profiled: {out[field]['profile']}")
+    wo, cb_np, _gmin = sc4._fns[("topk-fastplan", "big")]
+    cb = sc4._fns[("topk-cb", "big")]
+    planes = d.column("big").groups[0].arrays["planes"]
+    mask_fn, margs = sc4.prepare(tree4(0), [])
+    mask = mask_fn(*margs)[0]
+    absp = B.add_const_planes(planes, cb, wo)
+    _tw, better, tie, _nb = B.topk_select(absp, mask, 100, wo, True)
+    torch.cuda.synchronize()
+
+    def gathers(i):
+        bi, _ = CP.first_k_indexes(better, 128)
+        ti, _ = CP.first_k_indexes(tie, 128)
+        idx = torch.cat([bi, ti])
+        return CP.gather_plane_values(absp, idx, d.N), idx
+
+    idx = gathers(0)[1]
+    out["stages_big"] = {
+        "planes_out": wo, "absp_bytes": absp.numel() * 4,
+        "mask_ms": _event_ms(lambda i: mask_fn(*margs), iters=20),
+        "add_const_planes_ms": _event_ms(
+            lambda i: B.add_const_planes(planes, cb, wo), iters=20),
+        "topk_select_ms": _event_ms(
+            lambda i: B.topk_select(absp, mask, 100, wo, True), iters=20),
+        "topk_select_wall_ms": _wall_ms(lambda i: int(B.topk_select(
+            absp, mask, 100, wo, True)[3]), iters=20),
+        "gathers_ms": _event_ms(gathers, iters=20),
+        "project_id_ms": _event_ms(
+            lambda i: TS._flat_limbs(sc4, "id")[:, idx.long()], iters=20)}
+    print(f"phase 5 config4 top-k by big, stages: {out['stages_big']}")
+    return out
+
 
 def main() -> int:
     import torch
@@ -1011,6 +1604,7 @@ def main() -> int:
         print(f"  ptxas: {ln}")
 
     phase_kernels_vs_plain(dev)
+    phase_split_kernels_vs_plain(dev)
     phase_group_kernels_vs_plain(dev)
     phase_sort_kernel_vs_plain(dev)
     _mark("phase 3")
@@ -1090,6 +1684,13 @@ def main() -> int:
 
     _mark("group-by and series")
 
+    # ---- phase 4: config #2 (unfused leaves and sums, every scheme of
+    # its columns) and config #4 (ordered top-k) ----
+    sc2, sch2, queries2, launches2 = phase_config2(dev)
+    _mark("config #2")
+    sc4, tree4, big_query4 = phase_config4(dev)
+    _mark("config #4 top-k")
+
     # ---- phase 4: config #5 joins, the sort probe, tx ⋈ accounts ----
     jd, jcap, jpairs, keys5 = phase_joins(dev, NL5)
     lk, rk, rku = keys5
@@ -1104,7 +1705,10 @@ def main() -> int:
         "fused_group_partials": group_launches["fused_group_partials"],
         "fused_group_moments_partials":
             series_launches["fused_group_moments_partials"],
-        "tile_bitonic_sort": sort_launches["tile_bitonic_sort"]}
+        "tile_bitonic_sort": sort_launches["tile_bitonic_sort"],
+        "range_mask_count": launches2["OR subtree"]["range_mask_count"],
+        "masked_plane_popcounts":
+            launches2["fee RANGE"]["masked_plane_popcounts"]}
 
     # ---- phase 5: timing at the main paths' shapes ----
     variants = {}
@@ -1161,11 +1765,35 @@ def main() -> int:
                 + 2 * mask_in.numel() * 4
             rec["pct_of_stream_bw_l2_flushed"] = \
                 100.0 * nbytes / (rec["ms_l2_flushed"] / 1e3) / stream
+            # ~10 word operations per plane word (the ladder's 8 and the
+            # popcount's 2); no single PyTorch call computes the function
+            nops = 10 * sum(p.numel() for p in planes)
+            rec["library_ms"] = None
         else:
             # gid and every value word once, the mask words, the output
             gid, words, *vals = var[0][:-1]
+            G = var[0][-1]
             nbytes = (gid.numel() + words.numel()
-                      + sum(v.numel() for v in vals)) * 4
+                      + sum(v.numel() for v in vals)) * 4 \
+                + (1 + len(vals)) * G * 8
+            nops = gid.numel() * (2 + len(vals))
+            # the library route: ONE index_add_ of the count and every
+            # value half into int64[1 + 2K, G], its operands made outside
+            # the timed window
+            from knoxdb_tpu_torch.ops import bitset as BS
+            from knoxdb_tpu_torch.ops import words as WD
+            ok = BS.unpack_mask(words) & (gid >= 0) & (gid < G)
+            src = torch.stack([ok.to(torch.int64)]
+                              + [WD.u32_to_i64(v) * ok for v in vals]) \
+                .reshape(1 + len(vals), -1)
+            at = torch.where(ok, gid, 0).reshape(-1).long()
+            rec["library_ms"] = _event_ms(
+                lambda i: torch.zeros((src.shape[0], G), dtype=torch.int64,
+                                      device=dev).index_add_(1, at, src),
+                iters=20)
+            del ok, src, at
+        rec["bound_ms"], rec["bound_by"] = _bound(nbytes, nops)
+        rec["bound_stream_ms"] = nbytes / stream * 1e3
         rows = rows_of[rec["query"]]
         rec.update(bytes=nbytes, rows_per_s=rows / (ms / 1e3),
                    pct_of_stream_bw=100.0 * nbytes / (ms / 1e3) / stream)
@@ -1249,6 +1877,36 @@ def main() -> int:
     print(f"phase 5 stages config3_minmax: profiled: "
           f"{stages['config3_minmax']['profile']}")
 
+    # the operands the main paths hand 5a and 5b: every launch of config
+    # #2's OR-subtree query and fee RANGE and of config #4's big RANGE
+    path_ops = {"range_mask_count": [], "masked_plane_popcounts": []}
+    q2 = {q: (lambda q=q: sc2.scan(queries2[q][0](0), queries2[q][1]))
+          for q in ("OR subtree", "fee RANGE")}
+    for kname, label, call in (
+            ("range_mask_count", "config2 OR subtree", q2["OR subtree"]),
+            ("range_mask_count", "config2 fee RANGE", q2["fee RANGE"]),
+            ("masked_plane_popcounts", "config2 fee RANGE", q2["fee RANGE"]),
+            *((k, "config4 big RANGE",
+               lambda: sc4.scan(big_query4[0](), big_query4[1]))
+              for k in path_ops)):
+        path_ops[kname] += [(label, a)
+                            for a in _capture(SK, kname, call, every=True)]
+    nops5 = {k: [q for q, _a in v] for k, v in path_ops.items()}
+    if [len(v) for v in nops5.values()] != [4, 2]:
+        raise AssertionError(f"split-kernel launches of the paths: {nops5}")
+    split_records, layouts = time_split_kernels(
+        variants["fused_range_sum_masked"][0], path_ops, launches_by_kernel,
+        stream, flush)
+    records.extend(split_records)
+    stages["layouts"] = layouts
+    stages["config2"] = time_config2(sc2, sch2, queries2)
+    stages["delta_decode"] = time_delta_decode(sc2)
+    stages["config4"] = time_topk(sc4, tree4)
+    fn = lambda i: sc4.scan(big_query4[0](i % 2), big_query4[1])    # noqa
+    stages["config4"]["big RANGE"] = {"wall_ms": _wall_ms(fn, iters=20),
+                                      "profile": _profile(fn, n=5)}
+    print(f"phase 5 config4 scan(big RANGE, count, sum(big)): "
+          f"{stages['config4']['big RANGE']}")
     _mark("phase 5 kernels, calls and stages")
     probe = time_sort_probe(kops, pops, probe_ns, stream)
     rec8 = probe[-1]
@@ -1259,6 +1917,14 @@ def main() -> int:
         "launches": launches_by_kernel["tile_bitonic_sort"],
         "max_abs_err": sort_err, "ms": rec8["kernel_ms"],
         "plain_ms": rec8["plain_ms"], "torch_sort_ms": rec8["torch_sort_ms"],
+        "library_ms": rec8["torch_sort_ms"],
+        # 8 B in and 8 B out per element; 45 stages, each reading and
+        # writing 8 B per element in shared memory; ~8 word operations per
+        # element per stage
+        **dict(zip(("bound_ms", "bound_by"), _bound(
+            16 * rec8["n"], 45 * 8 * rec8["n"],
+            smem_bytes=45 * 2 * 8 * rec8["n"]))),
+        "bound_stream_ms": 16 * rec8["n"] / stream * 1e3,
         "query": f"config5 merged operands, N = {rec8['n']}",
         "at_2M": probe[0]})
     stages["joins"] = time_joins(jd, jcap)

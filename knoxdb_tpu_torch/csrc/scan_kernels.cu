@@ -3,8 +3,22 @@
 // Replaces the two Pallas TPU kernels of knoxdb_tpu/ops/pallas_scan.py:
 //   _kernel_masked (fused_range_sum_masked) -> knox_fused_range_sum_masked
 //   _kernel_tree   (fused_tree_agg)         -> knox_fused_tree_agg
-// Both host entry points launch the one __global__ kernel below; the
+// Both host entry points launch the one fused __global__ kernel below; the
 // single-leaf entry is the tree kernel with one leaf and one sum spec.
+//
+// And the two split bodies of probes/ps_variants.py, which the scan runs
+// for every leaf and every sum that does not ride the fused kernel:
+//   k_ladder_only -> knox_range_mask_count       (range_mask_count_kernel)
+//   k_pcnt_only   -> knox_masked_plane_popcounts (masked_popcounts_kernel)
+// Each is its own __global__ entry; the ladder and the per-plane popcount
+// are __device__ helpers shared with the fused kernel.
+//
+// Plane layout: every entry addresses word j of plane p of pack k at
+// planes[p * plane_stride + k * pack_stride + j] (strides in words). The
+// plane-major tensor u32[w, P, W] has strides (P * W, W); a pack-major
+// tensor u32[P, w, W] runs as its permuted view with strides (W, w * W),
+// without a copy (the probe's k_v0 / k_v6 against k_v4 / k_v7 layouts).
+// The tree entry takes contiguous plane-major fields only.
 //
 // Per pack (one block per pack, grid = P):
 //   1. every fused AND leaf runs an MSB-down range ladder over its field's
@@ -56,6 +70,8 @@
 
 struct TreeParams {
     const uint32_t* planes[KNOX_MAX_FIELDS];   // [w_f, P, W] per field
+    long long plane_stride[KNOX_MAX_FIELDS];   // words between planes
+    long long pack_stride[KNOX_MAX_FIELDS];    // words between packs
     int fwidth[KNOX_MAX_FIELDS];
     const uint32_t* lo_bits[KNOX_MAX_LEAVES];  // [P, max(w, 1)] per leaf
     const uint32_t* hi_bits[KNOX_MAX_LEAVES];
@@ -70,6 +86,20 @@ struct TreeParams {
     int nleaf, nspec, P, W;
 };
 
+// The plane loops are unrolled by hand, each kernel by its own factor. The
+// kernels wait on loads, and a pack's one block has too few threads to
+// cover the latency unless each thread keeps the words of several planes
+// in flight; nvcc's own choice flips with the address form (it unrolled
+// the fused kernel's ladder for the plane-major form only: 0.0224 ms on the
+// benchmark's 16-plane column at 256 packs, against 0.037 ms once the pack
+// offset came from a stride). Measured on an H100, ms with the planes warm
+// in L2 / with L2 flushed, 8 words per thread: the fused kernel's ladder
+// x4 0.0218 / 0.0339 (x8 0.0215 / 0.0357, none 0.0256 / 0.0369; 107
+// registers, no spills); the ladder-only kernel is fastest NOT unrolled,
+// 0.0202 / 0.0328 (x4 0.0263 / 0.0458, x8 0.0320 / 0.0537; 64 registers);
+// the popcount loop x8 0.0170 / 0.0325 (none 0.0246 / 0.0493; 40
+// registers). At 16 words per thread the fused ladder keeps two planes.
+
 // Block-wide integer sum; every thread calls it with its value.
 __device__ __forceinline__ int block_sum(unsigned v, int* slot) {
     if (threadIdx.x == 0) *slot = 0;
@@ -82,13 +112,81 @@ __device__ __forceinline__ int block_sum(unsigned v, int* slot) {
     return out;
 }
 
+// One leaf's MSB-down range ladder over this pack: m[k] &= (lo <= x <= hi)
+// for the WPT words each thread holds. pl points at plane 0 of the pack;
+// lob / hib at the pack's per-plane select words, fl at its flag words.
+template <int WPT, int UNROLL>
+__device__ __forceinline__ void range_ladder(
+        const uint32_t* pl, size_t plane_stride, int w, const uint32_t* lob,
+        const uint32_t* hib, const uint32_t* fl, int W, uint32_t (&m)[WPT]) {
+    const int tid = threadIdx.x;
+    const int nthr = blockDim.x;
+    uint32_t lt_lo[WPT], eq_lo[WPT], lt_hi[WPT], eq_hi[WPT];
+#pragma unroll
+    for (int k = 0; k < WPT; ++k) {
+        lt_lo[k] = 0u; eq_lo[k] = ~0u; lt_hi[k] = 0u; eq_hi[k] = ~0u;
+    }
+#pragma unroll UNROLL
+    for (int p = w - 1; p >= 0; --p) {
+        const uint32_t cl = __ldg(lob + p);
+        const uint32_t ch = __ldg(hib + p);
+        const uint32_t* row = pl + (size_t)p * plane_stride;
+#pragma unroll
+        for (int k = 0; k < WPT; ++k) {
+            const int j = tid + k * nthr;
+            const uint32_t x = j < W ? __ldg(row + j) : 0u;
+            lt_lo[k] |= eq_lo[k] & ~x & cl;
+            eq_lo[k] &= ~(x ^ cl);
+            lt_hi[k] |= eq_hi[k] & ~x & ch;
+            eq_hi[k] &= ~(x ^ ch);
+        }
+    }
+    const uint32_t f_lo_lt_all = __ldg(fl + F_LO_LT_ALL);
+    const uint32_t f_lo_ge_none = __ldg(fl + F_LO_GE_NONE);
+    const uint32_t f_hi_in = __ldg(fl + F_HI_IN);
+    const uint32_t f_hi_ge_none = __ldg(fl + F_HI_GE_NONE);
+    const uint32_t f_hi_lt_all = __ldg(fl + F_HI_LT_ALL);
+#pragma unroll
+    for (int k = 0; k < WPT; ++k) {
+        const uint32_t ge_lo = ~((lt_lo[k] | f_lo_lt_all) & ~f_lo_ge_none);
+        uint32_t le_hi = lt_hi[k] | (eq_hi[k] & f_hi_in) | f_hi_lt_all;
+        le_hi &= ~f_hi_ge_none;
+        m[k] &= ge_lo & le_hi;
+    }
+}
+
+// Per-plane popcounts of this pack's planes under the mask words m, into
+// s_acc[0..w) (shared, KNOX_MAX_WIDTH ints). Every thread of the block
+// calls it; s_acc is complete when it returns.
+template <int WPT>
+__device__ __forceinline__ void plane_popcounts(
+        const uint32_t* pl, size_t plane_stride, int w, int W,
+        const uint32_t (&m)[WPT], int* s_acc) {
+    const int tid = threadIdx.x;
+    const int nthr = blockDim.x;
+    for (int i = tid; i < KNOX_MAX_WIDTH; i += nthr) s_acc[i] = 0;
+    __syncthreads();
+#pragma unroll (WPT >= 16 ? 2 : 8)
+    for (int p = 0; p < w; ++p) {
+        const uint32_t* row = pl + (size_t)p * plane_stride;
+        unsigned pc = 0;
+#pragma unroll
+        for (int k = 0; k < WPT; ++k) {
+            const int j = tid + k * nthr;
+            if (j < W) pc += __popc(__ldg(row + j) & m[k]);
+        }
+        pc = __reduce_add_sync(0xffffffffu, pc);
+        if ((tid & 31) == 0 && pc) atomicAdd(&s_acc[p], (int)pc);
+    }
+    __syncthreads();
+}
+
 template <int WPT>
 __global__ void __launch_bounds__(KNOX_MAX_THREADS)
 fused_tree_kernel(const TreeParams prm) {
     const int tid = threadIdx.x;
     const int nthr = blockDim.x;
     const int W = prm.W;
-    const size_t PW = (size_t)prm.P * W;
     const size_t base = (size_t)blockIdx.x * W;
     __shared__ int s_acc[KNOX_MAX_WIDTH];
     __shared__ int s_sum;
@@ -105,41 +203,11 @@ fused_tree_kernel(const TreeParams prm) {
         const int f = prm.leaf_field[l];
         const int w = prm.fwidth[f];
         const size_t cbase = (size_t)blockIdx.x * (w > 1 ? w : 1);
-        const uint32_t* lob = prm.lo_bits[l] + cbase;
-        const uint32_t* hib = prm.hi_bits[l] + cbase;
-        const uint32_t* pl = prm.planes[f] + base;
-        uint32_t lt_lo[WPT], eq_lo[WPT], lt_hi[WPT], eq_hi[WPT];
-#pragma unroll
-        for (int k = 0; k < WPT; ++k) {
-            lt_lo[k] = 0u; eq_lo[k] = ~0u; lt_hi[k] = 0u; eq_hi[k] = ~0u;
-        }
-        for (int p = w - 1; p >= 0; --p) {
-            const uint32_t cl = __ldg(lob + p);
-            const uint32_t ch = __ldg(hib + p);
-            const uint32_t* row = pl + (size_t)p * PW;
-#pragma unroll
-            for (int k = 0; k < WPT; ++k) {
-                const int j = tid + k * nthr;
-                const uint32_t x = j < W ? __ldg(row + j) : 0u;
-                lt_lo[k] |= eq_lo[k] & ~x & cl;
-                eq_lo[k] &= ~(x ^ cl);
-                lt_hi[k] |= eq_hi[k] & ~x & ch;
-                eq_hi[k] &= ~(x ^ ch);
-            }
-        }
-        const uint32_t* fl = prm.flags[l] + (size_t)blockIdx.x * KNOX_NFLAGS;
-        const uint32_t f_lo_lt_all = __ldg(fl + F_LO_LT_ALL);
-        const uint32_t f_lo_ge_none = __ldg(fl + F_LO_GE_NONE);
-        const uint32_t f_hi_in = __ldg(fl + F_HI_IN);
-        const uint32_t f_hi_ge_none = __ldg(fl + F_HI_GE_NONE);
-        const uint32_t f_hi_lt_all = __ldg(fl + F_HI_LT_ALL);
-#pragma unroll
-        for (int k = 0; k < WPT; ++k) {
-            const uint32_t ge_lo = ~((lt_lo[k] | f_lo_lt_all) & ~f_lo_ge_none);
-            uint32_t le_hi = lt_hi[k] | (eq_hi[k] & f_hi_in) | f_hi_lt_all;
-            le_hi &= ~f_hi_ge_none;
-            m[k] &= ge_lo & le_hi;
-        }
+        range_ladder<WPT, (WPT >= 16 ? 2 : 4)>(
+            prm.planes[f] + (size_t)blockIdx.x * prm.pack_stride[f],
+            (size_t)prm.plane_stride[f], w, prm.lo_bits[l] + cbase,
+            prm.hi_bits[l] + cbase,
+            prm.flags[l] + (size_t)blockIdx.x * KNOX_NFLAGS, W, m);
     }
 
     // 2. match mask and its count
@@ -159,22 +227,11 @@ fused_tree_kernel(const TreeParams prm) {
     for (int s = 0; s < prm.nspec; ++s) {
         const int f = prm.spec_field[s];
         const int w = prm.fwidth[f];
-        const uint32_t* pl = prm.planes[f] + base;
+        const uint32_t* pl = prm.planes[f]
+            + (size_t)blockIdx.x * prm.pack_stride[f];
+        const size_t pstride = (size_t)prm.plane_stride[f];
         if (prm.pcnt[s]) {
-            for (int i = tid; i < KNOX_MAX_WIDTH; i += nthr) s_acc[i] = 0;
-            __syncthreads();
-            for (int p = 0; p < w; ++p) {
-                const uint32_t* row = pl + (size_t)p * PW;
-                unsigned pc = 0;
-#pragma unroll
-                for (int k = 0; k < WPT; ++k) {
-                    const int j = tid + k * nthr;
-                    if (j < W) pc += __popc(__ldg(row + j) & m[k]);
-                }
-                pc = __reduce_add_sync(0xffffffffu, pc);
-                if ((tid & 31) == 0 && pc) atomicAdd(&s_acc[p], (int)pc);
-            }
-            __syncthreads();
+            plane_popcounts<WPT>(pl, pstride, w, W, m, s_acc);
             const int w1 = w > 1 ? w : 1;
             int32_t* out = prm.pcnt[s] + (size_t)blockIdx.x * w1;
             for (int i = tid; i < w1; i += nthr) out[i] = i < w ? s_acc[i] : 0;
@@ -186,7 +243,7 @@ fused_tree_kernel(const TreeParams prm) {
             for (int k = 0; k < WPT; ++k) { cmn[k] = m[k]; cmx[k] = m[k]; }
             uint32_t mn_lo = 0u, mn_hi = 0u, mx_lo = 0u, mx_hi = 0u;
             for (int p = w - 1; p >= 0; --p) {
-                const uint32_t* row = pl + (size_t)p * PW;
+                const uint32_t* row = pl + p * pstride;
                 uint32_t tmn[WPT], tmx[WPT];
                 uint32_t any_mn = 0u, any_mx = 0u;
 #pragma unroll
@@ -232,21 +289,102 @@ fused_tree_kernel(const TreeParams prm) {
     }
 }
 
+
+// probes/ps_variants.py k_ladder_only: one column's range ladder AND an
+// optional incoming mask (null = all rows) -> the mask and its count.
+template <int WPT>
+__global__ void __launch_bounds__(KNOX_MAX_THREADS)
+range_mask_count_kernel(const uint32_t* planes, int w, size_t plane_stride,
+                        size_t pack_stride, const uint32_t* lo_bits,
+                        const uint32_t* hi_bits, const uint32_t* flags,
+                        const uint32_t* mask_in, uint32_t* mask_out,
+                        long long* cnt, int W) {
+    const int tid = threadIdx.x;
+    const int nthr = blockDim.x;
+    const size_t base = (size_t)blockIdx.x * W;
+    __shared__ int s_sum;
+    uint32_t m[WPT];
+#pragma unroll
+    for (int k = 0; k < WPT; ++k) {
+        const int j = tid + k * nthr;
+        m[k] = j < W ? (mask_in ? mask_in[base + j] : ~0u) : 0u;
+    }
+    const size_t cbase = (size_t)blockIdx.x * (w > 1 ? w : 1);
+    range_ladder<WPT, 1>(planes + (size_t)blockIdx.x * pack_stride, plane_stride,
+                      w, lo_bits + cbase, hi_bits + cbase,
+                      flags + (size_t)blockIdx.x * KNOX_NFLAGS, W, m);
+    unsigned c = 0;
+#pragma unroll
+    for (int k = 0; k < WPT; ++k) {
+        const int j = tid + k * nthr;
+        if (j < W) {
+            mask_out[base + j] = m[k];
+            c += __popc(m[k]);
+        }
+    }
+    const int total = block_sum(c, &s_sum);
+    if (tid == 0) cnt[blockIdx.x] = total;
+}
+
+// probes/ps_variants.py k_pcnt_only: the count of a mask that arrives from
+// outside and the per-plane popcounts of one column's planes under it.
+template <int WPT>
+__global__ void __launch_bounds__(KNOX_MAX_THREADS)
+masked_popcounts_kernel(const uint32_t* planes, int w, size_t plane_stride,
+                        size_t pack_stride, const uint32_t* mask,
+                        long long* pcnt, long long* cnt, int W) {
+    const int tid = threadIdx.x;
+    const int nthr = blockDim.x;
+    const size_t base = (size_t)blockIdx.x * W;
+    __shared__ int s_acc[KNOX_MAX_WIDTH];
+    __shared__ int s_sum;
+    uint32_t m[WPT];
+    unsigned c = 0;
+#pragma unroll
+    for (int k = 0; k < WPT; ++k) {
+        const int j = tid + k * nthr;
+        m[k] = j < W ? mask[base + j] : 0u;
+        c += __popc(m[k]);
+    }
+    const int total = block_sum(c, &s_sum);
+    if (tid == 0) cnt[blockIdx.x] = total;
+    plane_popcounts<WPT>(planes + (size_t)blockIdx.x * pack_stride,
+                         plane_stride, w, W, m, s_acc);
+    const int w1 = w > 1 ? w : 1;
+    long long* out = pcnt + (size_t)blockIdx.x * w1;
+    for (int i = tid; i < w1; i += nthr) out[i] = i < w ? s_acc[i] : 0;
+}
+
+// threads: one per word up to 256 (at least one warp); WPT words each
+static int block_threads(int W) {
+    int nthr = W < KNOX_MAX_THREADS ? W : KNOX_MAX_THREADS;
+    if (nthr < 32) nthr = 32;
+    return (nthr + 31) / 32 * 32;
+}
+
+// Launch KERNEL<WPT> for the smallest WPT in {1, 2, 4, 8, 16} that covers
+// W words with nthr threads.
+#define KNOX_LAUNCH_WPT(KERNEL, P, W, stream, ...)                          \
+    do {                                                                    \
+        const int nthr_ = block_threads(W);                                 \
+        const int wpt_ = ((W) + nthr_ - 1) / nthr_;                         \
+        if (wpt_ <= 1) KERNEL<1><<<(P), nthr_, 0, stream>>>(__VA_ARGS__);   \
+        else if (wpt_ <= 2)                                                 \
+            KERNEL<2><<<(P), nthr_, 0, stream>>>(__VA_ARGS__);              \
+        else if (wpt_ <= 4)                                                 \
+            KERNEL<4><<<(P), nthr_, 0, stream>>>(__VA_ARGS__);              \
+        else if (wpt_ <= 8)                                                 \
+            KERNEL<8><<<(P), nthr_, 0, stream>>>(__VA_ARGS__);              \
+        else if (wpt_ <= 16)                                                \
+            KERNEL<16><<<(P), nthr_, 0, stream>>>(__VA_ARGS__);             \
+        else return (int)cudaErrorInvalidValue;                             \
+    } while (0)
+
 static int launch(const TreeParams& prm, cudaStream_t stream) {
     if (prm.P <= 0 || prm.W <= 0 || prm.nleaf < 0 || prm.nleaf > KNOX_MAX_LEAVES
         || prm.nspec < 0 || prm.nspec > KNOX_MAX_SPECS)
         return (int)cudaErrorInvalidValue;
-    // threads: one per word up to 256 (at least one warp); WPT words each
-    int nthr = prm.W < KNOX_MAX_THREADS ? prm.W : KNOX_MAX_THREADS;
-    if (nthr < 32) nthr = 32;
-    nthr = (nthr + 31) / 32 * 32;
-    const int wpt = (prm.W + nthr - 1) / nthr;
-    if (wpt <= 1) fused_tree_kernel<1><<<prm.P, nthr, 0, stream>>>(prm);
-    else if (wpt <= 2) fused_tree_kernel<2><<<prm.P, nthr, 0, stream>>>(prm);
-    else if (wpt <= 4) fused_tree_kernel<4><<<prm.P, nthr, 0, stream>>>(prm);
-    else if (wpt <= 8) fused_tree_kernel<8><<<prm.P, nthr, 0, stream>>>(prm);
-    else if (wpt <= 16) fused_tree_kernel<16><<<prm.P, nthr, 0, stream>>>(prm);
-    else return (int)cudaErrorInvalidValue;
+    KNOX_LAUNCH_WPT(fused_tree_kernel, prm.P, prm.W, stream, prm);
     return (int)cudaGetLastError();
 }
 
@@ -271,6 +409,8 @@ int knox_fused_tree_agg(const void* const* planes, const int* fwidths,
         if (fwidths[f] < 0 || fwidths[f] > KNOX_MAX_WIDTH)
             return (int)cudaErrorInvalidValue;
         prm.planes[f] = (const uint32_t*)planes[f];
+        prm.plane_stride[f] = (long long)P * W;
+        prm.pack_stride[f] = W;
         prm.fwidth[f] = fwidths[f];
     }
     for (int l = 0; l < nleaf; ++l) {
@@ -299,15 +439,21 @@ int knox_fused_tree_agg(const void* const* planes, const int* fwidths,
 }
 
 // One-leaf range filter AND mask_in, with the filtered column's per-plane
-// masked popcounts (fused_range_sum_masked). Returns a cudaError_t value.
+// masked popcounts (fused_range_sum_masked). plane_stride and pack_stride
+// are in words (see the layout note above). Returns a cudaError_t value.
 int knox_fused_range_sum_masked(const void* planes, int width,
+                                long long plane_stride, long long pack_stride,
                                 const void* lo_bits, const void* hi_bits,
                                 const void* flags, const void* mask_in,
                                 void* mask_out, void* pcnt, void* cnt, int P,
                                 int W, void* stream) {
-    if (width < 0 || width > KNOX_MAX_WIDTH) return (int)cudaErrorInvalidValue;
+    if (width < 0 || width > KNOX_MAX_WIDTH || plane_stride < 0
+        || pack_stride < 0)
+        return (int)cudaErrorInvalidValue;
     TreeParams prm = {};
     prm.planes[0] = (const uint32_t*)planes;
+    prm.plane_stride[0] = plane_stride;
+    prm.pack_stride[0] = pack_stride;
     prm.fwidth[0] = width;
     prm.lo_bits[0] = (const uint32_t*)lo_bits;
     prm.hi_bits[0] = (const uint32_t*)hi_bits;
@@ -324,6 +470,45 @@ int knox_fused_range_sum_masked(const void* planes, int width,
     prm.P = P;
     prm.W = W;
     return launch(prm, (cudaStream_t)stream);
+}
+
+// One column's range ladder AND mask_in (null = every row) -> mask_out
+// u32[P, W] and cnt i64[P] (range_mask_count). Returns a cudaError_t value.
+int knox_range_mask_count(const void* planes, int width,
+                          long long plane_stride, long long pack_stride,
+                          const void* lo_bits, const void* hi_bits,
+                          const void* flags, const void* mask_in,
+                          void* mask_out, void* cnt, int P, int W,
+                          void* stream) {
+    if (width < 0 || width > KNOX_MAX_WIDTH || plane_stride < 0
+        || pack_stride < 0 || P <= 0 || W <= 0)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    KNOX_LAUNCH_WPT(range_mask_count_kernel, P, W, st,
+                    (const uint32_t*)planes, width, (size_t)plane_stride,
+                    (size_t)pack_stride, (const uint32_t*)lo_bits,
+                    (const uint32_t*)hi_bits, (const uint32_t*)flags,
+                    (const uint32_t*)mask_in, (uint32_t*)mask_out,
+                    (long long*)cnt, W);
+    return (int)cudaGetLastError();
+}
+
+// Per-plane popcounts of one column under mask u32[P, W] -> pcnt
+// i64[P, max(width, 1)] and cnt i64[P] (masked_plane_popcounts). Returns a
+// cudaError_t value.
+int knox_masked_plane_popcounts(const void* planes, int width,
+                                long long plane_stride, long long pack_stride,
+                                const void* mask, void* pcnt, void* cnt,
+                                int P, int W, void* stream) {
+    if (width < 0 || width > KNOX_MAX_WIDTH || plane_stride < 0
+        || pack_stride < 0 || P <= 0 || W <= 0)
+        return (int)cudaErrorInvalidValue;
+    cudaStream_t st = (cudaStream_t)stream;
+    KNOX_LAUNCH_WPT(masked_popcounts_kernel, P, W, st,
+                    (const uint32_t*)planes, width, (size_t)plane_stride,
+                    (size_t)pack_stride, (const uint32_t*)mask,
+                    (long long*)pcnt, (long long*)cnt, W);
+    return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -10,10 +10,11 @@ knoxdb_tpu/encode/schemes.py, with the same names and outputs.
 - DICT     codes bitplane-packed + sorted unique values
 - ALP      floats as decimal-scaled ints (encode/alp.py), packed as BITPACK
 
-The device decodes of plane-packed values (`decode_bitplanes_pair`,
-`decode_bitplanes_u32`) run on int32-carried u32 words (ops/words.py),
-widths 0-64; the DELTA/RLE decodes, `key_u64_to_limbs` and wide decodes
-wait for a later slice (ROADMAP.md queue 1 item 2).
+The device decodes run on int32-carried u32 words (ops/words.py), plane
+widths 0-64 (a wide column's packs store 64-bit pack-relative keys). Torch
+has no uint64: where the reference holds u64 keys the port holds int64
+tensors with the same bits (`ops/words.bits_i64`), whose add, subtract and
+cumsum wrap mod 2^64 as the u64 ones do.
 """
 
 from __future__ import annotations
@@ -238,7 +239,7 @@ def decode_bitplanes_pair(planes: torch.Tensor, width: int):
     torch has no uint64 to bitcast the halves into."""
     if not 0 <= width <= 64:
         raise ValueError(f"decode_bitplanes_pair: width {width} outside "
-                         f"[0, 64] (wide decodes: ROADMAP.md queue 1 item 2)")
+                         f"[0, 64]")
     _w, P, n32 = planes.shape
 
     def tr(block):
@@ -271,3 +272,88 @@ def decode_bitplanes_u32(planes: torch.Tensor, width: int) -> torch.Tensor:
     for p in range(width):
         out = out | (_expand_bits(planes[p]) << p)
     return out
+
+
+def decode_bitplanes_u64(planes: torch.Tensor, width: int) -> torch.Tensor:
+    """int32[max(w,1), P, N32] -> int64[P, N] holding the packed-domain u64
+    bits (ops/words.bits_i64). Narrow widths (a sequential key's DELTA
+    planes) keep decode_bitplanes_u32's short chain: the 32-plane transpose
+    costs 2.1 ms at [256, 65,536] on an H100 whatever the width."""
+    if width <= 8:
+        return WD.u32_to_i64(decode_bitplanes_u32(planes, width))
+    return WD.bits_i64(*decode_bitplanes_pair(planes, width))
+
+
+def key_u64_to_limbs(keys: torch.Tensor, nlimbs: int) -> torch.Tensor:
+    """int64 u64 bits [P, N] -> int32-carried limbs [L, P, N], L in {1, 2},
+    most significant first."""
+    lo, hi = WD.halves_of_bits(keys)
+    return lo[None] if nlimbs == 1 else torch.stack([hi, lo])
+
+
+def decode_const(values: torch.Tensor, P: int, N: int) -> torch.Tensor:
+    """values int32[P, L, 1] -> int32[L, P, N] broadcast (a view)."""
+    return values.permute(1, 0, 2).expand(values.shape[1], P, N)
+
+
+def decode_raw(values: torch.Tensor) -> torch.Tensor:
+    """values int32[P, L, N] -> int32[L, P, N] (a view)."""
+    return values.permute(1, 0, 2)
+
+
+def decode_bitpack(planes, min_keys, width: int, nlimbs: int):
+    """planes int32[max(w,1), P, N32], min_keys int64 u64 bits [P] ->
+    int32[L, P, N]."""
+    if width <= 32 and nlimbs == 1:
+        v = decode_bitplanes_u32(planes, width) \
+            + WD.halves_of_bits(min_keys)[0][:, None]
+        return v[None]
+    v = decode_bitplanes_u64(planes, width) + min_keys[:, None]
+    return key_u64_to_limbs(v, nlimbs)
+
+
+def decode_delta(planes, base_keys, width: int, nlimbs: int):
+    """Zigzag deltas -> wrapping cumsum + base. planes int32[max(w,1), P,
+    N32], base int64 u64 bits [P] -> int32[L, P, N]."""
+    zz = decode_bitplanes_u64(planes, width)
+    d = WD.lsr64(zz, 1) ^ (-(zz & 1))
+    v = torch.cumsum(d, dim=-1) + base_keys[:, None]
+    return key_u64_to_limbs(v, nlimbs)
+
+
+def rle_run_index(ends: torch.Tensor, N: int) -> torch.Tensor:
+    """ends int32-carried u32[P, k] -> int32[P, N] run index per row
+    (run[i] = #ends <= i)."""
+    row = torch.arange(N, dtype=torch.int64, device=ends.device)
+    return (WD.u32_to_i64(ends)[:, :, None] <= row).sum(dim=1,
+                                                        dtype=torch.int32)
+
+
+def _gather_rows(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """values int32[P, L, k], idx [P, N] -> int32[L, P, N]."""
+    P, L, _k = values.shape
+    g = torch.gather(values, 2, idx.long()[:, None, :].expand(P, L, -1))
+    return g.permute(1, 0, 2)
+
+
+def decode_rle(values, ends, N: int):
+    """values int32[P, L, k], ends u32[P, k] -> int32[L, P, N]."""
+    return _gather_rows(values, rle_run_index(ends, N))
+
+
+def decode_dict(planes, values, width: int):
+    """Code planes int32[max(w,1), P, N32], values int32[P, L, k] ->
+    int32[L, P, N]."""
+    return _gather_rows(values, decode_bitplanes_u32(planes, width))
+
+
+def dict_gather_mask(code_planes, width: int, dict_mask):
+    """The dictionary matcher: the predicate evaluated on the dictionary
+    (k values), gathered by code. dict_mask bool[P, k] -> bool[P, N]."""
+    codes = decode_bitplanes_u32(code_planes, width).long()
+    return torch.gather(dict_mask, 1, codes)
+
+
+def rle_gather_mask(ends, run_mask, N: int):
+    """The RLE matcher: a predicate on run values expanded to rows."""
+    return torch.gather(run_mask, 1, rle_run_index(ends, N).long())

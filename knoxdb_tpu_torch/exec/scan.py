@@ -6,12 +6,16 @@ Per query:
 1. the host prunes packs by zone maps (pack/stats.py) into per-pack
    ALL/NONE tri-states, rewrites every leaf into per-group device
    constants (exec/rewrite.py) and plans the fusion (`_plan_fusion`);
-2. the leaves that do not fuse are evaluated into the "rest mask"
-   (exec/device.group_match), ANDed with validity and the exclude /
-   include words;
+2. the leaves that do not fuse (OR subtrees, columns in several groups
+   or in a scheme other than narrow BITPACK / DICT, leaves past the fused
+   kernel's capacity) are evaluated into the "rest mask"
+   (exec/device.group_match: the ladder kernel for range-family leaves
+   over BITPACK and DICT code planes, plain torch for the rest), ANDed
+   with validity and the exclude / include words;
 3. ONE fused scan kernel (ops/scan_kernels.py) runs every fused AND
    leaf's ladder on that mask and emits every fused aggregate's partials;
-   aggregates that do not fuse run after it (exec/device.py);
+   aggregates that do not fuse run after it (exec/device.py: the popcount
+   kernel for BITPACK sums, per-scheme decodes for the rest);
 4. the host combines the per-pack partials exactly with python ints;
 5. with project=, the mask becomes a selection vector (ops/compact.py),
    each projected column is decoded to keyform limbs and gathered at it
@@ -28,7 +32,6 @@ its full signature too.
 
 from __future__ import annotations
 
-import bisect
 from dataclasses import dataclass, field as dc_field
 
 import numpy as np
@@ -45,6 +48,7 @@ from ..types import FieldType, FilterMode
 from ..utils import limbs as lb
 from . import device as D
 from . import rewrite as RW
+from .rewrite import _dict_code_range_host, _mode_to_range_host
 
 __all__ = ["AggSpec", "ScanResult", "SegmentScanner"]
 
@@ -693,10 +697,29 @@ class SegmentScanner:
             f"materializing {col.field.name}: ALP float packs are not ported "
             f"yet: ROADMAP.md queue 1 item 4")
 
-    def _wide_values(self, col, limbs, idx_np):
-        raise NotImplementedError(
-            f"materializing {col.field.name}: wide (> 64-bit) columns are not "
-            f"ported yet: ROADMAP.md queue 1 item 2")
+    def _wide_values(self, col, limbs: np.ndarray, idx_np: np.ndarray):
+        """Recombine wide rows: the device limbs hold either full RAW /
+        CONST keyform limbs or (zeros..., hi, lo) pack-relative keys that
+        need their pack's python-int base."""
+        ft = col.field.type
+        N = self.d.N
+        n = limbs.shape[1]
+        bias = 1 << (ft.bits - 1) if ft.is_signed else 0
+        out = np.empty(n, object)
+        packs = (idx_np[:n] // N).astype(np.int64)
+        # object-int vector arithmetic: exact at any width, no row loop
+        rel = (limbs[-2].astype(object) << 32) | limbs[-1].astype(object)
+        for p in np.unique(packs):
+            ep = col.packs[int(p)]
+            m = packs == p
+            if ep.scheme == Scheme.BITPACK:
+                out[m] = rel[m] + (col.wide_bases[int(p)] - bias)
+            else:
+                v = np.zeros(int(m.sum()), object)
+                for l in range(limbs.shape[0]):
+                    v = (v << 32) | limbs[l][m].astype(object)
+                out[m] = v - bias
+        return out
 
     # ------------------------------------------------------ host combine --
 
@@ -706,122 +729,94 @@ class SegmentScanner:
             if spec.op == "count":
                 res.aggs[key] = res.count
                 continue
-            ft = self.d.seg.columns[spec.field].field.type
+            col = self.d.seg.columns[spec.field]
+            ft = col.field.type
             groups = self.d.column(spec.field).groups
             if spec.op in ("sum", "avg"):
-                total, cnt = self._combine_sum(part, groups, ft)
+                total, cnt = self._combine_sum(part, groups, ft, col)
                 if spec.op == "sum":
                     res.aggs[key] = total
                 else:
                     res.aggs[key] = (total / cnt) if cnt else None
             else:
                 res.aggs[key] = self._combine_minmax(part, groups, ft,
-                                                     spec.op == "min")
+                                                     spec.op == "min", col)
 
     @staticmethod
-    def _combine_sum(parts, groups, ft: FieldType):
-        """Σ_p 2^p·pcnt[:, p] + min_key·count per pack, in python ints,
-        then the signed keyform bias."""
+    def _combine_sum(parts, groups, ft: FieldType, col=None):
+        """The keyform sum over every group's per-pack partials (the forms
+        of exec/device.group_masked_sum), in python ints, then the signed
+        keyform bias: Σ_p 2^p·pcnt[:, p] plus min_key (or the wide base)
+        times the count; the pack value times the count; per-limb sums
+        weighted by 2^32 per limb; lo + 2^32·hi."""
         if ft.is_float:
             raise NotImplementedError(
                 "float sums are not ported yet: ROADMAP.md queue 1 item 4")
         total = 0
         cnt = 0
         for part, g in zip(parts, groups):
-            pc = part["pcnt"].cpu().numpy().astype(object)
-            c = part["cnt"].cpu().numpy().astype(np.int64)
-            weights = np.array([1 << p for p in range(pc.shape[1])], object)
-            total += int((pc * weights[None, :]).sum())
-            total += int((g.min_keys.astype(object) * c.astype(object)).sum())
+            c = part["cnt"].cpu().numpy().astype(object)
             cnt += int(c.sum())
+            if "pcnt" in part:
+                pc = part["pcnt"].cpu().numpy().astype(object)
+                weights = np.array([1 << p for p in range(pc.shape[1])],
+                                   object)
+                total += int((pc * weights[None, :]).sum())
+                base = np.array(g.bases, object) if g.wide \
+                    else g.min_keys.astype(object)
+                total += int((base * c).sum())
+            elif "limb_sums" in part:
+                sums = part["limb_sums"].cpu().numpy().astype(object)
+                L = sums.shape[0]
+                for l in range(L):
+                    total += int(sums[l].sum()) << (32 * (L - 1 - l))
+            elif "lo" in part:
+                total += int(part["lo"].cpu().numpy().astype(object).sum())
+                total += int(part["hi"].cpu().numpy().astype(object)
+                             .sum()) << 32
+            else:                                   # CONST packs
+                total += sum(RW._pack_const_value(col, g, j) * int(c[j])
+                             for j in np.flatnonzero(c))
         if ft.is_signed:
             total -= cnt << (ft.bits - 1)
         return total, cnt
 
     @staticmethod
-    def _combine_minmax(parts, groups, ft: FieldType, want_min: bool):
-        """Pack-relative u32 halves + min_key per non-empty pack -> the
-        best value in the native domain (None when nothing matched)."""
+    def _combine_minmax(parts, groups, ft: FieldType, want_min: bool,
+                        col=None):
+        """The best value over every non-empty pack's winner (the forms of
+        exec/device.group_masked_minmax), in the native domain; None when
+        nothing matched."""
         best = None
-        col = (0, 1) if want_min else (2, 3)
+        mcol = (0, 1) if want_min else (2, 3)
         for part, g in zip(parts, groups):
-            mm = WD.from_words(part["mnmx"])
             c = part["cnt"].cpu().numpy()
-            for j in np.flatnonzero(c):
-                rel = int(mm[j, col[0]]) | (int(mm[j, col[1]]) << 32)
-                v = _key_to_value(rel + int(g.min_keys[j]), ft)
+            hit = np.flatnonzero(c)
+            if "mnmx" in part:
+                mm = WD.from_words(part["mnmx"])
+                keys = [(int(mm[j, mcol[0]]) | (int(mm[j, mcol[1]]) << 32))
+                        + (int(g.bases[j]) if g.wide else int(g.min_keys[j]))
+                        for j in hit]
+            elif "mn_limbs" in part:
+                src = WD.from_words(part["mn_limbs" if want_min
+                                         else "mx_limbs"])
+                keys = []
+                for j in hit:
+                    k = 0
+                    for l in range(src.shape[0]):
+                        k = (k << 32) | int(src[l, j])
+                    keys.append(k)
+            elif "mn" in part:
+                src = WD.u64_from_ordered(
+                    part["mn" if want_min else "mx"].cpu().numpy())
+                keys = [int(src[j]) for j in hit]
+            else:                                   # CONST packs
+                keys = [RW._pack_const_value(col, g, j) for j in hit]
+            for k in keys:
+                v = _key_to_value(k, ft)
                 if best is None or (v < best if want_min else v > best):
                     best = v
         return best
-
-
-def _dict_code_range_host(leaf, g):
-    """Per-pack inclusive CODE ranges for a DICT-group leaf of the fused
-    kernel; it must agree predicate by predicate with
-    exec/rewrite._dict_consts*, which serve the rest mask. Dictionaries
-    are sorted, so EQ/LT/LE/GT/GE/RANGE map to half-open code intervals
-    via bisect. Empty intervals (incl. EQ misses) encode as the inverted
-    pair (1, 0): the ladders then require code >= 1 AND code <= 0, which
-    no row satisfies. Returns (lo u64[P], hi u64[P])."""
-    P = g.npacks
-    lo = np.zeros(P, np.uint64)
-    hi = np.zeros(P, np.uint64)
-    m = leaf.mode
-    is_bytes = g.dict_bytes is not None
-    for j in range(P):
-        if is_bytes:
-            dk = g.dict_bytes[j]
-            v = leaf.value_bytes
-            v0, v1 = (v[0], v[1]) if m == FilterMode.RANGE else (v, v)
-            lb_ = lambda x: bisect.bisect_left(dk, x)      # noqa: E731
-            ub_ = lambda x: bisect.bisect_right(dk, x)     # noqa: E731
-        else:
-            dk = g.dict_keys[j]
-            v0 = np.uint64(int(leaf.key))
-            v1 = np.uint64(int(getattr(leaf, "key_hi", 0) or 0)) \
-                if m == FilterMode.RANGE else v0
-            lb_ = lambda x: int(np.searchsorted(dk, x, "left"))   # noqa: E731
-            ub_ = lambda x: int(np.searchsorted(dk, x, "right"))  # noqa: E731
-        card = len(dk)
-        if m == FilterMode.EQ:
-            l, h = lb_(v0), ub_(v0)            # [pos, pos+1) or empty
-        elif m == FilterMode.LT:
-            l, h = 0, lb_(v0)
-        elif m == FilterMode.LE:
-            l, h = 0, ub_(v0)
-        elif m == FilterMode.GT:
-            l, h = ub_(v0), card
-        elif m == FilterMode.GE:
-            l, h = lb_(v0), card
-        elif m == FilterMode.RANGE:
-            l, h = lb_(v0), ub_(v1)
-        else:
-            raise ValueError(f"_dict_code_range_host: {m}")
-        if h <= l:
-            lo[j], hi[j] = 1, 0                # universally empty
-        else:
-            lo[j], hi[j] = l, h - 1
-    return lo, hi
-
-
-def _mode_to_range_host(mode: FilterMode, lo: int, hi: int):
-    """Inclusive u64 (lo, hi) of a fusable mode. Strict modes adjust by one
-    key; boundary wraps (GT u64max, LT 0) map to the universally-empty
-    range (1, 0)."""
-    U = (1 << 64) - 1
-    if mode == FilterMode.RANGE:
-        return lo, hi
-    if mode == FilterMode.EQ:
-        return lo, lo
-    if mode == FilterMode.GE:
-        return lo, U
-    if mode == FilterMode.LE:
-        return 0, lo
-    if mode == FilterMode.GT:
-        return (1, 0) if lo == U else (lo + 1, U)
-    if mode == FilterMode.LT:
-        return (1, 0) if lo == 0 else (0, lo - 1)
-    raise ValueError(f"_mode_to_range_host: {mode}")
 
 
 def _leaf_cache_key(f: Filter) -> tuple:

@@ -26,6 +26,7 @@ from . import words as WD
 __all__ = [
     "rel_to_device", "cmp_planes_rel", "range_planes_rel", "in_planes_rel",
     "match_planes", "popcount_words", "masked_sum_planes",
+    "add_const_planes", "topk_select",
 ]
 
 _U64_MAX = np.uint64(0xFFFFFFFFFFFFFFFF)
@@ -214,3 +215,124 @@ def _tournament_planes(planes, mask_words, width: int, want_max: bool):
         else:
             hi = hi | (bit << (p - 32))
     return WD.u32_from_i64(lo), WD.u32_from_i64(hi)
+
+
+# ------------------------------------------------------------------ top-k ---
+
+def add_const_planes(planes, const_bits, width_out: int):
+    """Bit-sliced ripple-carry add of a PER-PACK constant.
+
+    planes int32[w, P, W] (plane-major) encode x (pack-relative offsets);
+    const_bits int32[width_out, P] holds bit b of each pack's constant as a
+    full / zero word (computed on the host from pack metadata, where the
+    bases are python ints). Returns int32[width_out, P, W], the bitplanes
+    of (x + c) mod 2^width_out; planes past w read as zero.
+
+    Cost: width_out sequential full-adder steps of [P, W] word ops, about
+    two reads and one write of the plane volume."""
+    w, P, W = planes.shape
+    carry = torch.zeros((P, W), dtype=torch.int32, device=planes.device)
+    out = torch.empty((width_out, P, W), dtype=torch.int32,
+                      device=planes.device)
+    for b in range(width_out):
+        cb = const_bits[b][:, None]
+        if b < w:
+            xb = planes[b]
+            x_cb = xb ^ cb
+            out[b] = x_cb ^ carry
+            carry = (xb & cb) | (carry & x_cb)
+        else:
+            out[b] = cb ^ carry
+            carry = carry & cb
+    return out
+
+
+def topk_select(planes, mask_words, k, width: int, want_max: bool):
+    """Exact top-k THRESHOLD and candidate masks by an MSB-first radix-4
+    bit descent: ceil(width / 2) dependent steps of bucket popcounts over
+    [P, W] words, with no sort of the row population.
+
+    planes must lie in a domain that is COMPARABLE across packs (absolute
+    keys minus a global base, see add_const_planes). k is a python int or
+    a 0-dim integer tensor. The remaining count, the bucket counts and the
+    threshold words stay 0-dim device tensors chosen with torch.where, so
+    the chain never waits for the host.
+
+    Returns (t_words: tuple of 0-dim int32-carried u32 words, least
+    significant first; better int32[P, W]; tie int32[P, W]; n_better 0-dim
+    int64): `better` rows beat the threshold T = Σ_j t_words[j] << 32j
+    strictly, `tie` rows equal it; the top-k set is better plus any
+    (k - n_better) tie rows. Works at any width (wide 128 / 256-bit
+    keyform planes included)."""
+    _, P, W = planes.shape
+    dev = planes.device
+    nw = -(-width // 32)
+    pm = mask_words                      # rows still matching the prefix
+    better = torch.zeros((P, W), dtype=torch.int32, device=dev)
+    t_words = [torch.zeros((), dtype=torch.int64, device=dev)
+               for _ in range(nw)]
+    k_rem = torch.as_tensor(k, device=dev).to(torch.int64)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def setbit(b, tbit):
+        t_words[b // 32] = t_words[b // 32] | (tbit.to(torch.int64)
+                                               << (b % 32))
+
+    def pcount(m):
+        return WD.popcount(m).sum(dtype=torch.int64)
+
+    b = width - 1
+    if width % 2:                        # odd width: one single-bit step
+        x = planes[b]
+        pref = pm & (x if want_max else ~x)
+        rest = pm & (~x if want_max else x)
+        c = pcount(pref)
+        take = c >= k_rem
+        pm = torch.where(take, pref, rest)
+        better = torch.where(take, better, better | pref)
+        k_rem = torch.where(take, k_rem, k_rem - c)
+        setbit(b, take if want_max else ~take)
+        b -= 1
+    while b >= 1:
+        # preferred-direction bit pair: after the conditional complement
+        # "1" always means "sorts toward the top", so the bucket preference
+        # is 3 > 2 > 1 > 0 whatever want_max is
+        x1 = planes[b]
+        x0 = planes[b - 1]
+        if not want_max:
+            x1 = ~x1
+            x0 = ~x0
+        g3 = pm & x1 & x0
+        g2 = pm & x1 & ~x0
+        g1 = pm & ~x1 & x0
+        # one popcount pass over the three buckets (fewer launches)
+        c3, c2, c1 = WD.popcount(torch.stack([g3, g2, g1])).sum(
+            dim=(1, 2), dtype=torch.int64).unbind()
+        cum2 = c3 + c2
+        cum1 = cum2 + c1
+        s3 = c3 >= k_rem
+        s2 = (~s3) & (cum2 >= k_rem)
+        s1 = (~s3) & (~s2) & (cum1 >= k_rem)
+        in23 = s3 | s2
+        in123 = in23 | s1
+        pm = torch.where(s3, g3,
+                         torch.where(s2, g2,
+                                     torch.where(s1, g1, pm & ~x1 & ~x0)))
+        better = better | torch.where(s3, 0, g3) \
+            | torch.where(in23, 0, g2) | torch.where(in123, 0, g1)
+        k_rem = k_rem - torch.where(s3, zero, c3) \
+            - torch.where(in23, zero, c2) - torch.where(in123, zero, c1)
+        # chosen bucket bits in the preferred space; the actual bit is the
+        # preferred bit for max, its complement for min
+        p1 = in23
+        p0 = s3 | s1
+        if not want_max:
+            p1 = ~p1
+            p0 = ~p0
+        setbit(b, p1)
+        setbit(b - 1, p0)
+        b -= 2
+    # the single-bit step leaves an even number of planes, so the pair
+    # loop always lands exactly on planes (1, 0)
+    return (tuple(WD.u32_from_i64(t) for t in t_words), better, pm,
+            pcount(better))

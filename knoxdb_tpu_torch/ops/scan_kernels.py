@@ -1,7 +1,8 @@
 """Fused bit-sliced scan: range filter + aggregate partials in one pass.
 
-The port of knoxdb_tpu/ops/pallas_scan.py. Two wrappers, each with its
-plain PyTorch version beside it:
+The port of knoxdb_tpu/ops/pallas_scan.py and of the split kernel bodies
+of probes/ps_variants.py. Four wrappers, each with its plain PyTorch
+version beside it:
 
 - `fused_range_sum_masked` (alias `fused_range_sum`): one column's range
   ladder AND an incoming mask -> (mask, per-plane masked popcounts,
@@ -10,6 +11,17 @@ plain PyTorch version beside it:
   ladder over deduplicated per-field planes AND mask_in, then per agg
   spec the masked per-plane popcounts and/or the min/max tournament.
   Replaces the TPU kernel `_kernel_tree`.
+- `range_mask_count`: one column's range ladder AND an incoming mask ->
+  (mask, count), no popcounts of planes: what every leaf that stays in
+  the scan's rest mask runs. Replaces `ps_variants.k_ladder_only`.
+- `masked_plane_popcounts`: per-plane popcounts of one column under a
+  mask that arrives from outside -> (pcnt, count): what every sum that
+  does not ride a fused kernel runs. Replaces `ps_variants.k_pcnt_only`.
+
+`fused_range_sum_masked` and the two split wrappers take planes at any
+plane and pack stride with a contiguous last axis: plane-major
+int32[w, P, W], or a pack-major tensor [P, w, W] as its view
+`.permute(1, 0, 2)`, without a copy (the probe's two layouts).
 
 On a CUDA tensor a wrapper launches its hand-written kernel
 (csrc/scan_kernels.cu) or raises; on a CPU tensor it runs the plain
@@ -31,9 +43,12 @@ import torch
 from ..types import FilterMode
 from . import bitslice as B
 
-__all__ = ["range_consts", "fused_range_sum_masked", "fused_range_sum",
-           "fused_tree_agg", "fused_tree_sum", "fused_range_sum_ref",
+__all__ = ["range_consts", "range_consts_rel", "fused_range_sum_masked",
+           "fused_range_sum", "fused_tree_agg", "fused_tree_sum",
+           "fused_range_sum_ref",
            "fused_range_sum_masked_torch", "fused_tree_agg_torch",
+           "range_mask_count", "range_mask_count_torch",
+           "masked_plane_popcounts", "masked_plane_popcounts_torch",
            "LAUNCHES", "PLAIN_CALLS", "reset_counts", "MAX_FIELDS",
            "MAX_LEAVES", "MAX_SPECS", "MAX_WIDTH"]
 
@@ -52,8 +67,10 @@ _F_HI_LT_ALL = 4    # hi above the pack domain  -> le_hi = all
 _NFLAGS = 8
 _MM_COLS = 8        # mnmx columns: mn_lo, mn_hi, mx_lo, mx_hi, 4 zeros
 
-LAUNCHES = {"fused_range_sum_masked": 0, "fused_tree_agg": 0}
-PLAIN_CALLS = {"fused_range_sum_masked": 0, "fused_tree_agg": 0}
+_KERNELS = ("fused_range_sum_masked", "fused_tree_agg", "range_mask_count",
+            "masked_plane_popcounts")
+LAUNCHES = dict.fromkeys(_KERNELS, 0)
+PLAIN_CALLS = dict.fromkeys(_KERNELS, 0)
 
 
 def reset_counts() -> None:
@@ -66,8 +83,16 @@ def range_consts(min_keys, lo, hi, width: int):
     """Per-pack kernel constants for lo <= x <= hi (value domain), on the
     host. lo/hi are u64 scalars or per-pack arrays. Returns numpy
     (lo_bits u32[P, max(w,1)], hi_bits u32[P, max(w,1)], flags u32[P, 8])."""
-    lo_rel, lo_lt_all, lo_ge_none, _lo_in = B._rel_const(lo, min_keys, width)
-    hi_rel, hi_lt_all, hi_ge_none, hi_in = B._rel_const(hi, min_keys, width)
+    return range_consts_rel(B._rel_const(lo, min_keys, width),
+                            B._rel_const(hi, min_keys, width), width)
+
+
+def range_consts_rel(rel_lo, rel_hi, width: int):
+    """range_consts from the two bounds' host relations (c_rel u64[P],
+    lt_all, ge_none, in_dom bool[P]), as ops/bitslice._rel_const and the
+    python-int relations of wide packs give them."""
+    lo_rel, lo_lt_all, lo_ge_none, _lo_in = rel_lo
+    hi_rel, hi_lt_all, hi_ge_none, hi_in = rel_hi
     flags = np.zeros((lo_rel.shape[0], _NFLAGS), np.uint32)
     for col, b in ((_F_LO_LT_ALL, lo_lt_all), (_F_LO_GE_NONE, lo_ge_none),
                    (_F_HI_IN, hi_in), (_F_HI_GE_NONE, hi_ge_none),
@@ -128,6 +153,20 @@ def fused_tree_agg_torch(planes_list, leaf_ops, leaf_field, mask_in,
     return m, cnt, parts
 
 
+def range_mask_count_torch(planes, lo_bits, hi_bits, flags, mask_in,
+                           width: int):
+    """Plain PyTorch version of range_mask_count."""
+    mask = _ladder_torch(planes, lo_bits, hi_bits, flags, width)
+    if mask_in is not None:
+        mask = mask & mask_in
+    return mask, B.popcount_words(mask)
+
+
+def masked_plane_popcounts_torch(planes, mask, width: int):
+    """Plain PyTorch version of masked_plane_popcounts."""
+    return B.masked_sum_planes(planes, mask, width)
+
+
 # ---------------------------------------------------------------- wrappers --
 
 def _check(t, name: str, shape, device):
@@ -140,6 +179,23 @@ def _check(t, name: str, shape, device):
         raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: not contiguous")
+
+
+def _check_planes(planes, w1: int, P: int, W: int, device):
+    """Planes int32[w1, P, W] at any plane and pack stride; the words of
+    one plane of one pack must be contiguous. Returns (plane stride, pack
+    stride) in words."""
+    if not isinstance(planes, torch.Tensor) or planes.dtype != torch.int32:
+        raise TypeError(f"planes: expected an int32 tensor, got "
+                        f"{getattr(planes, 'dtype', type(planes))}")
+    if planes.device != device:
+        raise ValueError(f"planes: on {planes.device}, expected {device}")
+    if tuple(planes.shape) != (w1, P, W):
+        raise ValueError(f"planes: shape {tuple(planes.shape)} != "
+                         f"{(w1, P, W)}")
+    if W > 1 and planes.stride(2) != 1:
+        raise ValueError("planes: the last axis is not contiguous")
+    return planes.stride(0), planes.stride(1)
 
 
 def _check_width(width: int):
@@ -155,16 +211,16 @@ def _raise_on(err: int, name: str):
 
 def fused_range_sum_masked(planes, lo_bits, hi_bits, flags, mask_in,
                            width: int):
-    """planes int32[max(w,1), P, W] plane-major; lo_bits/hi_bits
-    int32[P, max(w,1)] and flags int32[P, 8] from range_consts; mask_in
-    int32[P, W]. Returns (mask int32[P, W], pcnt int32[P, max(w,1)],
-    cnt int32[P])."""
+    """planes int32[max(w,1), P, W] (plane-major, or the permuted view of
+    a pack-major tensor); lo_bits/hi_bits int32[P, max(w,1)] and flags
+    int32[P, 8] from range_consts; mask_in int32[P, W]. Returns (mask
+    int32[P, W], pcnt int32[P, max(w,1)], cnt int32[P])."""
     _check_width(width)
     P, W = mask_in.shape
     w1 = max(width, 1)
     dev = mask_in.device
-    for t, name, shape in ((planes, "planes", (w1, P, W)),
-                           (lo_bits, "lo_bits", (P, w1)),
+    plane_stride, pack_stride = _check_planes(planes, w1, P, W, dev)
+    for t, name, shape in ((lo_bits, "lo_bits", (P, w1)),
                            (hi_bits, "hi_bits", (P, w1)),
                            (flags, "flags", (P, _NFLAGS)),
                            (mask_in, "mask_in", (P, W))):
@@ -183,9 +239,10 @@ def fused_range_sum_masked(planes, lo_bits, hi_bits, flags, mask_in,
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.knox_fused_range_sum_masked(
-            planes.data_ptr(), width, lo_bits.data_ptr(), hi_bits.data_ptr(),
-            flags.data_ptr(), mask_in.data_ptr(), mask.data_ptr(),
-            pcnt.data_ptr(), cnt.data_ptr(), P, W, stream)
+            planes.data_ptr(), width, plane_stride, pack_stride,
+            lo_bits.data_ptr(), hi_bits.data_ptr(), flags.data_ptr(),
+            mask_in.data_ptr(), mask.data_ptr(), pcnt.data_ptr(),
+            cnt.data_ptr(), P, W, stream)
     _raise_on(err, "fused_range_sum_masked")
     LAUNCHES["fused_range_sum_masked"] += 1
     return mask, pcnt, cnt
@@ -193,6 +250,76 @@ def fused_range_sum_masked(planes, lo_bits, hi_bits, flags, mask_in,
 
 # validity plays exactly the incoming-mask role: one kernel, two names
 fused_range_sum = fused_range_sum_masked
+
+
+def range_mask_count(planes, lo_bits, hi_bits, flags, mask_in, width: int):
+    """One column's range ladder AND mask_in, and the mask's count.
+
+    planes int32[max(w,1), Pg, W] at any plane and pack stride;
+    lo_bits/hi_bits int32[Pg, max(w,1)] and flags int32[Pg, 8] from
+    range_consts; mask_in int32[Pg, W], or None for every row. Returns
+    (mask int32[Pg, W], cnt int64[Pg])."""
+    _check_width(width)
+    w1 = max(width, 1)
+    P, W = planes.shape[1:]
+    dev = planes.device
+    plane_stride, pack_stride = _check_planes(planes, w1, P, W, dev)
+    for t, name, shape in ((lo_bits, "lo_bits", (P, w1)),
+                           (hi_bits, "hi_bits", (P, w1)),
+                           (flags, "flags", (P, _NFLAGS))) \
+            + (((mask_in, "mask_in", (P, W)),) if mask_in is not None else ()):
+        _check(t, name, shape, dev)
+    if dev.type == "cpu":
+        PLAIN_CALLS["range_mask_count"] += 1
+        return range_mask_count_torch(planes, lo_bits, hi_bits, flags,
+                                      mask_in, width)
+    if dev.type != "cuda":
+        raise ValueError(f"range_mask_count: unsupported device {dev}")
+    from .cuda_build import load
+    lib = load()
+    mask = torch.empty((P, W), dtype=torch.int32, device=dev)
+    cnt = torch.empty((P,), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.knox_range_mask_count(
+            planes.data_ptr(), width, plane_stride, pack_stride,
+            lo_bits.data_ptr(), hi_bits.data_ptr(), flags.data_ptr(),
+            mask_in.data_ptr() if mask_in is not None else None,
+            mask.data_ptr(), cnt.data_ptr(), P, W, stream)
+    _raise_on(err, "range_mask_count")
+    LAUNCHES["range_mask_count"] += 1
+    return mask, cnt
+
+
+def masked_plane_popcounts(planes, mask, width: int):
+    """Per-plane popcounts of one column under a mask from outside.
+
+    planes int32[max(w,1), Pg, W] at any plane and pack stride; mask
+    int32[Pg, W]. Returns (pcnt int64[Pg, max(w,1)] with pcnt[:, p] =
+    popcount(plane_p & mask), one zero column at width 0; cnt int64[Pg])."""
+    _check_width(width)
+    w1 = max(width, 1)
+    P, W = mask.shape
+    dev = mask.device
+    plane_stride, pack_stride = _check_planes(planes, w1, P, W, dev)
+    _check(mask, "mask", (P, W), dev)
+    if dev.type == "cpu":
+        PLAIN_CALLS["masked_plane_popcounts"] += 1
+        return masked_plane_popcounts_torch(planes, mask, width)
+    if dev.type != "cuda":
+        raise ValueError(f"masked_plane_popcounts: unsupported device {dev}")
+    from .cuda_build import load
+    lib = load()
+    pcnt = torch.empty((P, w1), dtype=torch.int64, device=dev)
+    cnt = torch.empty((P,), dtype=torch.int64, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.knox_masked_plane_popcounts(
+            planes.data_ptr(), width, plane_stride, pack_stride,
+            mask.data_ptr(), pcnt.data_ptr(), cnt.data_ptr(), P, W, stream)
+    _raise_on(err, "masked_plane_popcounts")
+    LAUNCHES["masked_plane_popcounts"] += 1
+    return pcnt, cnt
 
 
 def _ptrs(ts):

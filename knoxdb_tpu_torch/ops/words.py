@@ -17,10 +17,12 @@ import torch
 
 __all__ = ["FULL", "to_words", "from_words", "lsr", "popcount",
            "split_u64", "join_u64", "u32_from_i64", "u32_to_i64",
-           "ordered_i64", "ordered_from_u64", "u64_from_ordered"]
+           "ordered_i64", "ordered_from_u64", "u64_from_ordered",
+           "bits_i64", "halves_of_bits", "bits_from_u64", "lsr64"]
 
 FULL = -1          # 0xFFFFFFFF read as int32
 _I32_MIN = -(1 << 31)
+I64_MIN = -(1 << 63)
 _BIT63 = np.uint64(1 << 63)
 
 
@@ -69,6 +71,29 @@ def ordered_i64(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
     ordered(x) < ordered(y). No step overflows: the flipped high word read
     as int32 times 2^32 plus the low word stays inside int64."""
     return (hi ^ _I32_MIN).to(torch.int64) * (1 << 32) + u32_to_i64(lo)
+
+
+def bits_i64(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """u64 halves (int32-carried) -> int64 holding the same 64 bits: the
+    port's form of a device u64 where only wrapping arithmetic (add,
+    subtract, cumsum mod 2^64) and equality are needed. Its signed order
+    is NOT the u64 order; flip bit 63 (`^ I64_MIN`) for `ordered_i64`."""
+    return hi.to(torch.int64) * (1 << 32) + u32_to_i64(lo)
+
+
+def halves_of_bits(k: torch.Tensor):
+    """int64 holding u64 bits -> (lo, hi) int32-carried u32 halves."""
+    return u32_from_i64(k & 0xFFFFFFFF), (k >> 32).to(torch.int32)
+
+
+def lsr64(k: torch.Tensor, s: int) -> torch.Tensor:
+    """Logical right shift of int64-carried u64 bits by 1 <= s <= 63."""
+    return (k >> s) & ((1 << (64 - s)) - 1)
+
+
+def bits_from_u64(a) -> np.ndarray:
+    """Host u64 -> int64 with the same bits (for `bits_i64` tensors)."""
+    return np.ascontiguousarray(a, np.uint64).view(np.int64)
 
 
 def ordered_from_u64(a) -> np.ndarray:

@@ -1,5 +1,5 @@
-"""CUDA scan, group and tile-sort kernels vs their plain PyTorch versions,
-on the card.
+"""CUDA scan (fused, split and strided), group and tile-sort kernels vs
+their plain PyTorch versions, on the card.
 
 The kernels have no CPU mode, so these tests skip without a GPU; run them
 on one with `python -m pytest -m cuda tests/test_torch_cuda_kernels.py`.
@@ -70,6 +70,118 @@ def test_range_sum_kernel_equals_plain(cuda, width):
     want = SK.fused_range_sum_masked_torch(*args)
     for g, w, name in zip(got, want, ("mask", "pcnt", "cnt")):
         _same(g, w, name)
+
+
+def _split_case(width, P, W, device, seed, mask="random"):
+    """Operands of the split kernels: random planes and range constants,
+    with a random, empty, full or absent incoming mask."""
+    rng = np.random.default_rng(seed)
+    planes, ops, _lf, mask_in, _w, _s = random_tree_case(
+        rng, (width,), P, W, 1, (), empty_pack=False)
+    if mask == "empty":
+        mask_in[:] = 0
+    elif mask == "full":
+        mask_in[:] = 0xFFFFFFFF
+    return (WD.to_words(planes[0], device),
+            *(WD.to_words(a, device) for a in ops[0]),
+            None if mask is None else WD.to_words(mask_in, device), width)
+
+
+@pytest.mark.parametrize("mask", ["random", "empty", "full", None])
+@pytest.mark.parametrize("width", [0, 1, 16, 33, 64])
+def test_range_mask_count_kernel_equals_plain(cuda, width, mask):
+    """Kernel 5a at Pg = 13 (not a multiple of 8) and W = 2048 and 40."""
+    for W in (2048, 40):
+        args = _split_case(width, 13, W, cuda, width * 7 + W, mask)
+        before = SK.LAUNCHES["range_mask_count"]
+        got = SK.range_mask_count(*args)
+        torch.cuda.synchronize()
+        assert SK.LAUNCHES["range_mask_count"] == before + 1
+        want = SK.range_mask_count_torch(*args)
+        assert got[1].dtype == torch.int64
+        for g, w, name in zip(got, want, ("mask", "cnt")):
+            _same(g, w, name)
+
+
+@pytest.mark.parametrize("mask", ["random", "empty", "full"])
+@pytest.mark.parametrize("width", [0, 1, 16, 33, 64])
+def test_masked_plane_popcounts_kernel_equals_plain(cuda, width, mask):
+    """Kernel 5b at Pg = 13 and W = 2048 and 40."""
+    for W in (2048, 40):
+        planes, _lo, _hi, _fl, m, _w = _split_case(width, 13, W, cuda,
+                                                   width * 11 + W, mask)
+        before = SK.LAUNCHES["masked_plane_popcounts"]
+        got = SK.masked_plane_popcounts(planes, m, width)
+        torch.cuda.synchronize()
+        assert SK.LAUNCHES["masked_plane_popcounts"] == before + 1
+        want = SK.masked_plane_popcounts_torch(planes, m, width)
+        for g, w, name in zip(got, want, ("pcnt", "cnt")):
+            _same(g, w, name)
+
+
+@pytest.mark.parametrize("width", [1, 16, 33, 64])
+def test_pack_major_view_equals_plane_major(cuda, width):
+    """Kernels #1, 5a and 5b on the permuted view of a pack-major tensor
+    [P, w, W] (no copy) give the plane-major results bit for bit."""
+    planes, lo, hi, fl, m, _w = _split_case(width, 13, 2048, cuda, width)
+    pm = planes.permute(1, 0, 2).contiguous().permute(1, 0, 2)
+    assert pm.shape == planes.shape
+    assert width == 1 or pm.stride() == (2048, width * 2048, 1)
+    for a, b in zip(SK.fused_range_sum_masked(planes, lo, hi, fl, m, width),
+                    SK.fused_range_sum_masked(pm, lo, hi, fl, m, width)):
+        _same(a, b, "fused_range_sum_masked")
+    for a, b in zip(SK.range_mask_count(planes, lo, hi, fl, m, width),
+                    SK.range_mask_count(pm, lo, hi, fl, m, width)):
+        _same(a, b, "range_mask_count")
+    for a, b in zip(SK.masked_plane_popcounts(planes, m, width),
+                    SK.masked_plane_popcounts(pm, m, width)):
+        _same(a, b, "masked_plane_popcounts")
+    with pytest.raises(ValueError, match="last axis"):
+        SK.range_mask_count(planes.permute(0, 2, 1).contiguous()
+                            .permute(0, 2, 1), lo, hi, fl, m, width)
+
+
+@pytest.mark.parametrize("mode", ["EQ", "LT", "LE", "GT", "GE", "RANGE"])
+def test_wide_bitpack_range_leaf_runs_ladder_kernel(cuda, mode):
+    """A range-family leaf over a wide (INT128) BITPACK column launches the
+    ladder kernel once per scan, and its mask, count and sum equal the
+    CPU scan's (the plain versions)."""
+    from knoxdb_tpu_torch.exec.device import DeviceSegment
+    from knoxdb_tpu_torch.exec.scan import AggSpec, SegmentScanner
+    from knoxdb_tpu_torch.pack.segment import build_segment
+    from knoxdb_tpu_torch.query.filter import Filter, leaf
+    from knoxdb_tpu_torch.schema.schema import Builder
+    from knoxdb_tpu_torch.types import FieldType, FilterMode
+
+    rng = np.random.default_rng(11)
+    n, pack = 4096, 1024
+    big = np.empty(n, object)
+    for i in range(n):
+        big[i] = (i // pack - 1) * (1 << 80) + int(rng.integers(0, 1 << 33))
+    sch = Builder("w").pk("id").add("big", FieldType.INT128).finish()
+    seg = build_segment(sch, {"id": np.arange(1, n + 1, dtype=np.uint64),
+                              "big": big}, pack_size=pack)
+    vals = sorted(big.tolist())
+    # bounds inside a pack, so that the zone maps cannot decide every pack
+    value = (vals[n // 4 + 100], vals[3 * n // 4 + 100]) \
+        if mode == "RANGE" else vals[n // 2 + 100]
+    tree = leaf(Filter(sch.field("big"), FilterMode[mode], value)).optimize()
+    aggs = [AggSpec("count"), AggSpec("sum", "big")]
+    out = []
+    for dev in ("cpu", cuda):
+        sc = SegmentScanner(DeviceSegment(seg, dev))
+        assert sc.d.column("big").wide
+        fn, args = sc.prepare(tree, [])
+        mask = fn(*args)[0].cpu()
+        SK.reset_counts()
+        res = sc.scan(tree, aggs)
+        out.append((mask, res.count, res.aggs, dict(SK.LAUNCHES),
+                    dict(SK.PLAIN_CALLS)))
+    (m0, c0, a0, l0, p0), (m1, c1, a1, l1, p1) = out
+    _same(m1, m0, "mask")
+    assert (c1, a1) == (c0, a0) and 0 < c1 < n
+    assert l0["range_mask_count"] == 0 and p0["range_mask_count"] == 1
+    assert l1["range_mask_count"] == 1 and p1["range_mask_count"] == 0
 
 
 def test_wrapper_rejects_bad_operands(cuda):

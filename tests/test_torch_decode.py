@@ -122,6 +122,9 @@ def test_group_decode_schemes_covered(segs):
 
 
 def test_group_decode_unported_schemes_raise():
-    g = TD.DeviceGroup(Scheme.DELTA, 8, 0, 2, False, np.zeros(1, np.int64))
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
+    """Every integer scheme decodes; ALP packs wait (queue 1 item 4)."""
+    g = TD.DeviceGroup(Scheme.ALP, 8, 0, 2, False, np.zeros(1, np.int64))
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         TD.group_decode_halves(g, 32)
+    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+        TD.group_decode_keys(g, 32)

@@ -135,10 +135,18 @@ def test_scan_stream(eng, batch_packs):
 
 
 def test_unported_decode_raises(eng):
-    """The pk's DELTA packs decode in ROADMAP.md queue 1 item 2."""
-    _rsch, _tsch, _data, _rsc, tsc = eng
-    with pytest.raises(NotImplementedError, match="item 2"):
-        tsc.scan(None, [TAgg("count")], project=["id"])
+    """The pk's DELTA packs decode and project; ALP packs still wait for
+    ROADMAP.md queue 1 item 4."""
+    from knoxdb_tpu_torch.exec import device as TD
+    _rsch, _tsch, data, rsc, tsc = eng
+    assert tsc.d.column("id").groups[0].scheme == Scheme.DELTA
+    r = rsc.scan(None, [RAgg("count")], project=["id"])
+    t = tsc.scan(None, [TAgg("count")], project=["id"])
+    _same_rows(r, t, ["id"])
+    np.testing.assert_array_equal(t.rows["id"], data["id"])
+    g = TD.DeviceGroup(Scheme.ALP, 8, 0, 2, False, np.zeros(1, np.int64))
+    with pytest.raises(NotImplementedError, match="item 4"):
+        TD.group_decode_limbs(g, 32)
 
 
 def test_include_words_projection(eng, rng):
