@@ -19,7 +19,12 @@ exits nonzero:
      masked_plane_popcounts): widths 0, 1, 16, 33 and 64 at 37 packs, every
      combination of the five flag words, random, empty, full and absent
      incoming masks, and the one-leaf kernel and both split kernels on the
-     permuted view of a pack-major tensor against the plane-major result;
+     permuted view of a pack-major tensor against the plane-major result.
+     The chunk kernel (group_chunk_partials, kernels #6 and #7): both probe
+     geometries (H = 128, L = 8 and H = 256, L = 32 with its 224 KiB of
+     shared memory), float32 and int32 outputs, interleaved and band
+     layouts, S = 8, 16 and 32, a ragged last block, negative and sentinel
+     gids;
   4. main paths, each run with every launch counter set to 0 just before
      it and read just after, each exactly equal to a numpy oracle:
      - scan: the benchmark segment (256 packs x 65,536 rows, seed 0xBEEF,
@@ -34,6 +39,16 @@ exits nonzero:
      - group-by config #3c: G = 65,536 at 64 packs, minmax False;
      - series, config #6 (bench_suite.py:438-455, 1024 buckets of 64):
        series_scan moments at 64 packs, counts, sums and sums of squares;
+     - the chunk route: group_count_chunks on the operands group_scan hands
+       its group kernel at config #3 (1 launch) and #3c (8 launches): the
+       same counts and python-int sums as group_scan and numpy;
+     - floats, config #6's schema and bucket plan at 64 packs plus two
+       FLOAT64 columns (price: four decimals, ALP packs; lat: full
+       precision, keyform packs; probes/compression_matrix.py:97-103):
+       series_scan with moments, firstlast and fminmax on both and tsruns
+       and firstlast on val; scan(price RANGE, count, sum, min, max);
+       scan(project=price) at 1%; exact outputs equal to numpy, float
+       moments within 64 eps * Σ|v| per bucket;
      - config #2 (bench_suite.py:55-95, seed 0xC0FFEE, 256 x 65,536 rows:
        id pk, val u64, acct bytes of 64 values, bal i64, and one more
        column fee u64 that is zero in every fourth pack): the source's
@@ -46,13 +61,13 @@ exits nonzero:
        wide BITPACK packs, val u64, the DELTA pk): segment_topk of the 100
        largest big and val under val LT 50000 (the bit descent) and of id
        (the stable-sort fallback), keys and ids against numpy;
-     - joins, config #5 (bench_suite.py:303-418) at nl = nr = 1,048,576:
+     - joins, config #5 (bench_suite.py:303-418) at nl = nr = 4,194,304:
        join_pairs_device INNER and LEFT, unique_build with keys32, a build
        key run wider than SHIFT_S (the ladder's fallback), join_pairs_core
        with a cap retry and join_count_device, each an exact pair multiset;
      - the sort probe: kernel #8 on the join's merged (key, tagged id)
-       operands at M = 2,097,152;
-     - tx join accounts from two segments of 1,048,576 rows, composed as
+       operands at M = 8,388,608;
+     - tx join accounts from two segments of 4,194,304 rows, composed as
        engine/table.py's join_side and rows_at_positions do, with no
        filter and with amount > 0: every pair's amount and bal;
   5. timing (CUDA events, medians over alternating query variants, with
@@ -72,7 +87,10 @@ exits nonzero:
      and at the pack-major view; wall and device idle share of every
      config #2 and config #4 call; top-k's stages (add_const_planes,
      topk_select, the gathers with the projection) and kernel launches per
-     call; the DELTA decode's transpose and prefix sum. Every kernel's
+     call; the DELTA decode's transpose and prefix sum; the chunk kernel at
+     config #3's and #3c's operands beside its plain version, one
+     index_add_ and kernel #3 on the same rows, and the wall, device time
+     and idle share of the chunk route and of every float call. Every kernel's
      record carries its bound (bytes over the published HBM rate against
      word operations over the published float32 rate; kernel #8 also its
      shared-memory traffic) and, where one PyTorch call computes the same
@@ -102,7 +120,9 @@ _SOURCES = {"fused_range_sum_masked": "knoxdb_tpu_torch/csrc/scan_kernels.cu",
             "masked_plane_popcounts": "knoxdb_tpu_torch/csrc/scan_kernels.cu",
             "fused_group_partials": "knoxdb_tpu_torch/csrc/group_kernels.cu",
             "fused_group_moments_partials":
-                "knoxdb_tpu_torch/csrc/group_kernels.cu"}
+                "knoxdb_tpu_torch/csrc/group_kernels.cu",
+            "group_chunk_partials":
+                "knoxdb_tpu_torch/csrc/group_chunk_kernels.cu"}
 _REPLACES = {"fused_range_sum_masked": "knoxdb_tpu/ops/pallas_scan.py:126",
              "fused_tree_agg": "knoxdb_tpu/ops/pallas_scan.py:259",
              "range_mask_count": "probes/ps_variants.py:85",
@@ -305,6 +325,45 @@ def phase_group_kernels_vs_plain(dev):
     print(f"phase 3 group kernel=plain: {ncase} cases bit-identical "
           f"({P * N} rows, G = 1, 200, 1000, 8192, 65536; gids in [-2, G+3), "
           f"70% masks, all-ones values, squares of values up to 2^32 - 1)")
+
+
+def phase_chunk_kernel_vs_plain(dev):
+    """The chunk kernel (kernels #6 and #7) against its plain version, bit
+    for bit: both probe geometries, both output types, both layouts, S in
+    {8, 16, 32}, a ragged last block, negative and sentinel gids."""
+    import torch
+    from knoxdb_tpu_torch.ops import group_chunk_kernels as GCK
+    from knoxdb_tpu_torch.ops import words as WD
+
+    rng = np.random.default_rng(GROUP_SEED + 6)
+    ncase = 0
+    for H, L, shift, C in ((128, 8, 3, 4), (128, 8, 3, 6), (256, 32, 5, 6)):
+        for S in (8, 16, 32):
+            n = S * 1024 * 9 + 4321
+            gid = rng.integers(-3 * H * L, 4 * H * L, n).astype(np.int32)
+            gid[:4] = [-1, -(1 << 31), (1 << 31) - 1, H * L]
+            gid[4:4096] = 5                       # one contended cell
+            g = torch.from_numpy(gid).to(dev)
+            vlo, vhi = (WD.to_words(rng.integers(0, 1 << 32, n,
+                                                 dtype=np.uint64)
+                                    .astype(np.uint32), dev)
+                        for _ in range(2))
+            for out_dtype in (torch.float32, torch.int32):
+                for band in (False, True):
+                    got = GCK.group_chunk_partials(g, vlo, vhi, H, L, shift,
+                                                   C, S, out_dtype, band)
+                    want = GCK.group_chunk_partials_torch(
+                        g, vlo, vhi, H, L, shift, C, S, out_dtype, band)
+                    if got.dtype != want.dtype or not torch.equal(got, want):
+                        raise AssertionError(
+                            f"group_chunk_partials H={H} L={L} C={C} S={S} "
+                            f"{out_dtype} band={band}: differs from plain")
+                    ncase += 1
+    torch.cuda.synchronize()
+    print(f"phase 3 chunk kernel=plain: {ncase} cases bit-identical (H, L, C "
+          f"= 128, 8, 4 / 128, 8, 6 / 256, 32, 6; S = 8, 16, 32; float32 and "
+          f"int32; interleaved and band; ragged last block; gids in "
+          f"[-3HL, 4HL) with -2^31, 2^31 - 1 and the sentinel)")
 
 
 def _bench_segment():
@@ -558,10 +617,10 @@ def _capture(mod, name, call, every=False):
     orig = getattr(mod, name)
     got = []
 
-    def rec(*args):
+    def rec(*args, **kw):
         if every or not got:
             got.append(args)
-        return orig(*args)
+        return orig(*args, **kw)
 
     setattr(mod, name, rec)
     try:
@@ -624,10 +683,352 @@ def _profile(fn, n=10):
             "top": [(k[:70], v / n) for k, v in top]}
 
 
+# ------------------------- the chunk route and the float series path ---
+
+FLOAT_SEED = 0xA17                 # probes/compression_matrix.py:119
+EPS64 = 2.0 ** -52
+PRICE_LO, PRICE_HI = 1000.0, 3000.0
+PROJ_LO, PROJ_HI = 1000.0, 1050.0   # ~1% of prices uniform in (0.01, 5000)
+
+
+def phase_chunk_route(name, sc, sch, data, want_launches):
+    """group_count_chunks on the operands group_scan hands its group kernel:
+    the same counts and python-int sums as group_scan, and as numpy."""
+    from knoxdb_tpu_torch.exec import groupby as GB
+    tree = _gt_tree(sch, "bal", THR3)
+    box = {}
+
+    def call():
+        box["out"] = sc.group_scan(tree, "acct", ["bal"], minmax=False)
+
+    ops = _capture(GB, "group_count_sum", call)     # gids, mask, pair, G
+    gplan, counts, res = box["out"]
+    C, bias = GB.chunk_plan(sc.d.seg.stats.fields["bal"])
+    (cc, chunks), launches = run_path(
+        lambda: GB.group_count_chunks(*ops, C, bias))
+    if launches["group_chunk_partials"] != want_launches:
+        raise AssertionError(f"{name}: {launches['group_chunk_partials']} "
+                             f"chunk kernel launches, not {want_launches}")
+    cnp = cc.cpu().numpy()
+    sums = GB.mxu_chunk_sums([c.cpu().numpy() for c in chunks]) \
+        + bias * cnp.astype(object)
+    if not np.array_equal(cnp, counts) or list(sums) != list(res["bal"][0]):
+        raise AssertionError(f"{name}: the chunk route differs from "
+                             f"group_scan")
+    G = gplan.G
+    nsel = _cfg3_check(name, data, THR3, (gplan, cnp, {"bal": (
+        sums, np.full(G, _U64_MAX, np.uint64), np.zeros(G, np.uint64))}),
+        False)
+    H, L = GB._chunk_geometry(min(G, GB.CHUNK_PASS_GROUPS))
+    print(f"phase 4 main path {name} group_count_chunks: "
+          f"{ops[0].numel()} rows, G={G}, H={H}, L={L}, {C} byte chunks, "
+          f"bias {bias}, {nsel} rows pass; counts and python-int sums equal "
+          f"to group_scan's and numpy's; launches "
+          f"{launches['group_chunk_partials']}")
+    return {"ops": ops, "C": C, "bias": bias, "H": H, "L": L,
+            "launches": launches["group_chunk_partials"]}
+
+
+def _cfg6f_segment(n_packs: int):
+    """Config #6's schema and data (bench_suite.py:436-447) plus two FLOAT64
+    columns from probes/compression_matrix.py:97-98 (dec4_price: four
+    decimals, ALP) and :103 (poi_lat: full precision, keyform)."""
+    from knoxdb_tpu_torch.pack.segment import build_segment
+    from knoxdb_tpu_torch.schema.schema import Builder
+    from knoxdb_tpu_torch.types import FieldType
+
+    rng = np.random.default_rng(GROUP_SEED)
+    frng = np.random.default_rng(FLOAT_SEED)
+    n = PACK_SIZE * n_packs
+    sch = (Builder("c6f").pk("id")
+           .add("ts", FieldType.UINT64)
+           .add("val", FieldType.INT64)
+           .add("price", FieldType.FLOAT64)
+           .add("lat", FieldType.FLOAT64)
+           .finish())
+    data = {"id": np.arange(1, n + 1, dtype=np.uint64),
+            "ts": (T6 + rng.integers(0, G6 * IV6, n)).astype(np.uint64),
+            "val": rng.integers(-1 << 30, 1 << 30, n),
+            "price": np.round(frng.uniform(0.01, 5000, n), 4),
+            "lat": frng.uniform(-90, 90, n)}
+    t0 = time.perf_counter()
+    seg = build_segment(sch, data, pack_size=PACK_SIZE)
+    return sch, data, seg, time.perf_counter() - t0
+
+
+KINDS6F = {"price": ("moments", "firstlast", "fminmax"),
+           "lat": ("moments", "firstlast", "fminmax"),
+           "val": ("tsruns", "firstlast")}
+
+
+def _cfg6f_check(data, out, t0: int):
+    """Every output of the float series call against numpy: counts, first /
+    last, float min / max and the ts runs exactly; float moments within 64
+    eps * Σ|v| (Σv²) per bucket of the exactly rounded sums (math.fsum)."""
+    import math
+
+    from knoxdb_tpu_torch.types import FieldType
+    from knoxdb_tpu_torch.utils import limbs as L_
+    ts = data["ts"]
+    m = (ts >= t0) & (ts < t0 + G6 * IV6)
+    rows = np.flatnonzero(m)
+    b = ((ts[rows] - np.uint64(t0)) // np.uint64(IV6)).astype(np.int64)
+    order = np.lexsort((ts[rows], b))            # stable: ties in row order
+    rows, b = rows[order], b[order]
+    cnt = np.bincount(b, minlength=G6)
+    if (cnt == 0).any():
+        raise AssertionError("config6f: an empty bucket (the oracle takes "
+                             "every bucket as filled)")
+    starts = np.concatenate([[0], np.cumsum(cnt)[:-1]])
+    ends = starts + cnt - 1
+    tss = ts[rows]
+    worst = 0.0
+    for f in ("price", "lat"):
+        v = data[f][rows]
+        n_, s1, s2 = out[(f, "moments")]
+        if not np.array_equal(n_, cnt):
+            raise AssertionError(f"config6f {f}: bucket counts differ")
+        for got, x in ((s1, v), (s2, v * v)):
+            parts = np.split(x, starts[1:])
+            exact = np.array([math.fsum(p) for p in parts])
+            scale = np.add.reduceat(np.abs(x), starts)
+            err = np.abs(got - exact) / (EPS64 * scale)
+            worst = max(worst, float(err.max()))
+            if err.max() > 64:
+                raise AssertionError(f"config6f {f} moments: {err.max():.1f} "
+                                     f"eps * sum|v| off the exact sum")
+        keys = L_.to_keys64(v, FieldType.FLOAT64)
+        c, mn, mx = out[(f, "fminmax")]
+        if not (np.array_equal(c, cnt)
+                and np.array_equal(mn, np.minimum.reduceat(keys, starts))
+                and np.array_equal(mx, np.maximum.reduceat(keys, starts))):
+            raise AssertionError(f"config6f {f} fminmax differs")
+    for f in ("price", "lat", "val"):
+        col = data[f][rows]
+        pay = col.view(np.uint64) if col.dtype == np.float64 \
+            else col.astype(np.int64).view(np.uint64) ^ _BIT63
+        f_ts, f_v, l_ts, l_v, c = out[(f, "firstlast")]
+        want = (tss[starts], pay[starts], tss[ends], pay[ends], cnt)
+        for g_, w_ in zip((f_ts, f_v, l_ts, l_v, c), want):
+            if not np.array_equal(g_, w_):
+                raise AssertionError(f"config6f {f} firstlast differs")
+    # ts runs of val: rows of one (bucket, ts) are one run
+    val = data["val"][rows].astype(np.int64)
+    new = np.ones(len(rows), bool)
+    new[1:] = (b[1:] != b[:-1]) | (tss[1:] != tss[:-1])
+    rs = np.flatnonzero(new)
+    run_b, run_ts = b[rs], tss[rs]
+    run_cnt = np.diff(np.concatenate([rs, [len(rows)]]))
+    vu = val.view(np.uint64)
+    run_lo = np.add.reduceat(vu & np.uint64(0xFFFFFFFF), rs)
+    run_hi = np.add.reduceat(vu >> np.uint64(32), rs)
+    run_sum = np.add.reduceat(val, rs)           # |sum| < 2^43: exact
+    nr = np.bincount(run_b, minlength=G6)
+    if nr.min() < 3:
+        raise AssertionError("config6f: a bucket with fewer than 3 runs")
+    fi = np.concatenate([[0], np.cumsum(nr)[:-1]])
+    li = fi + nr - 1
+    r = out[("val", "tsruns")]
+    key = run_sum.view(np.uint64) ^ _BIT63
+    inner = np.stack([fi + 1, li]).T.ravel()     # [fi + 1, li) per bucket
+    sq = run_sum.astype(object) ** 2
+    cs = np.concatenate([[0], np.cumsum(sq)])
+    isq = np.array([float(cs[e] - cs[s_]) for s_, e in zip(fi + 1, li)])
+    csum = np.concatenate([[0], np.cumsum(run_sum)])
+    want = (nr, run_ts[fi], run_cnt[fi], run_lo[fi], run_hi[fi], run_ts[li],
+            run_cnt[li], run_lo[li], run_hi[li],
+            np.minimum.reduceat(key, inner)[::2],
+            np.maximum.reduceat(key, inner)[::2], nr - 2,
+            (csum[li] - csum[fi + 1]).astype(np.float64))
+    for i, w_ in enumerate(want):
+        if not np.array_equal(r[i], w_):
+            raise AssertionError(f"config6f val tsruns output {i} differs")
+    err = np.abs(r[13] - isq) / (EPS64 * isq)
+    if err.max() > 64:
+        raise AssertionError(f"config6f val tsruns int_sumsq: {err.max():.1f} "
+                             f"eps off")
+    return int(cnt.sum()), int(nr.sum()), max(worst, float(err.max()))
+
+
+def phase_floats(dev):
+    """The float series path at full width, each call against numpy."""
+    from fractions import Fraction
+
+    from knoxdb_tpu_torch.encode.schemes import Scheme
+    from knoxdb_tpu_torch.exec import groupby as GB
+    from knoxdb_tpu_torch.exec.device import DeviceSegment
+    from knoxdb_tpu_torch.exec.scan import AggSpec, SegmentScanner
+    from knoxdb_tpu_torch.query import filter as Q
+    from knoxdb_tpu_torch.types import FilterMode
+
+    sch, data, seg, t_build = _cfg6f_segment(PACKS_SMALL)
+    sc = SegmentScanner(DeviceSegment(seg, dev))
+    schemes = {f: sorted({g.scheme.name for g in sc.d.column(f).groups})
+               for f in ("price", "lat")}
+    if schemes["price"] != ["ALP"] or "ALP" in schemes["lat"]:
+        raise AssertionError(f"config6f schemes: {schemes}")
+    widths = sorted({g.width for g in sc.d.column("price").groups})
+    plans = [GB.plan_buckets(sc.d, "ts", T6 + k, IV6, G6) for k in (0, 1)]
+    out, launches = run_path(
+        lambda: sc.series_scan(None, "ts", KINDS6F, plans[0]))
+    need(launches, ("fused_tree_agg",), "config6f series_scan")
+    nsel, nruns, worst = _cfg6f_check(data, out, T6)
+    print(f"phase 4 main path config6f series_scan (moments + firstlast + "
+          f"fminmax on price and lat, tsruns + firstlast on val): "
+          f"{seg.nrows_total} rows, {G6} buckets, {nsel} rows bucketed, "
+          f"{nruns} ts runs, price {schemes['price']} widths {widths}, lat "
+          f"{schemes['lat']}, host build {t_build:.2f} s; exact outputs "
+          f"equal to numpy, float sums within {worst:.2f} eps * sum|v| of "
+          f"the exact sums (limit 64); launches {launches}")
+
+    def rng_tree(lo, hi):
+        return Q.leaf(Q.Filter(sch.field("price"), FilterMode.RANGE,
+                               (lo, hi))).optimize()
+
+    aggs = [AggSpec("count"), AggSpec("sum", "price"),
+            AggSpec("min", "price"), AggSpec("max", "price")]
+    res, launches = run_path(
+        lambda: sc.scan(rng_tree(PRICE_LO, PRICE_HI), aggs))
+    need(launches, ("range_mask_count", "masked_plane_popcounts"),
+         "config6f price RANGE")
+    price = data["price"]
+    m = (price >= PRICE_LO) & (price <= PRICE_HI)
+    enc = np.rint(price[m] * 1e4).astype(np.int64)
+    want = {("count", ""): int(m.sum()),
+            ("sum", "price"): float(Fraction(int(enc.sum()), 10 ** 4)),
+            ("min", "price"): float(price[m].min()),
+            ("max", "price"): float(price[m].max())}
+    if res.count != int(m.sum()) or res.aggs != want:
+        raise AssertionError(f"config6f price RANGE: {res.count} "
+                             f"{res.aggs} != {want}")
+    print(f"phase 4 main path config6f scan(price RANGE [{PRICE_LO}, "
+          f"{PRICE_HI}], count, sum, min, max): count={res.count} "
+          f"aggs={res.aggs}; the sum is the exact rational sum rounded "
+          f"once; exact vs numpy; launches {launches}")
+
+    res, launches = run_path(
+        lambda: sc.scan(rng_tree(PROJ_LO, PROJ_HI), [], project=["price"]))
+    need(launches, ("range_mask_count",), "config6f project price")
+    rows = np.flatnonzero((price >= PROJ_LO) & (price <= PROJ_HI))
+    if not (np.array_equal(res.row_ids, rows.astype(np.uint64))
+            and np.array_equal(res.rows["price"].view(np.uint64),
+                               price[rows].view(np.uint64))):
+        raise AssertionError("config6f scan(project=price) differs")
+    print(f"phase 4 main path config6f scan(project=price) at "
+          f"{100.0 * len(rows) / len(price):.2f}%: {len(rows)} rows, ids "
+          f"and float64 bits equal to numpy; launches {launches}")
+    calls = {
+        "series_scan floats": lambda i: sc.series_scan(None, "ts", KINDS6F,
+                                                       plans[i % 2]),
+        "price RANGE": lambda i: sc.scan(
+            rng_tree(PRICE_LO + (i % 2), PRICE_HI), aggs),
+        "project price": lambda i: sc.scan(
+            rng_tree(PROJ_LO + (i % 2), PROJ_HI + (i % 2)), [],
+            project=["price"])}
+    return calls
+
+
+def time_chunk_kernels(routes, records3, ops3c, stream, dev):
+    """Kernels #6 and #7 at the operands the chunk route hands them: kernel
+    = plain bit for bit, kernel, plain and index_add_ times, the bound from
+    these operands, kernel #3's time on the same rows, and the whole
+    route's wall and profile beside group_count_sum's."""
+    import torch
+    from knoxdb_tpu_torch.exec import groupby as GB
+    from knoxdb_tpu_torch.ops import group_chunk_kernels as GCK
+
+    k3 = {"config3": next(r["ms"] for r in records3
+                          if r["name"] == "fused_group_partials"),
+          "config3c": _event_ms(lambda i: GB.group_count_sum(*ops3c))}
+    out = []
+    for (qname, rt), num, repl in zip(
+            routes.items(), ("6", "7"),
+            ("probes/pg3_variants.py:84", "probes/pg_bigG.py:98")):
+        ops, C, bias = rt["ops"], rt["C"], rt["bias"]
+        passes = _capture(GCK, "group_chunk_partials",
+                          lambda: GB.group_count_chunks(*ops, C, bias),
+                          every=True)
+        gid, vlo, vhi, H, L, shift, C_ = passes[0]
+        got = GCK.group_chunk_partials(*passes[0])
+        if not torch.equal(got, GCK.group_chunk_partials_torch(*passes[0])):
+            raise AssertionError(f"group_chunk_partials at {qname}'s "
+                                 f"operands differs from plain")
+        buf = torch.empty_like(got)
+        n = gid.numel()
+        # what this run's data needs: 12 B per row in, the partials out, and
+        # one shared-memory atomic (a read and a write of 4 B) per row of
+        # the pass and per nonzero byte of its value
+        inp = (gid >= 0) & (gid < H * L)
+        atomics = int(inp.sum())
+        for c in range(C_):
+            w = vlo if c < 4 else vhi
+            atomics += int((inp & (((w >> (8 * (c % 4))) & 0xFF) != 0)).sum())
+        nbytes = 12 * n + got.numel() * 4
+        bound_ms, bound_by = _bound(nbytes, n * (4 + 3 * C_),
+                                    smem_bytes=8 * atomics)
+        ms = _event_ms(lambda i: GCK.group_chunk_partials(*passes[0],
+                                                          out=buf))
+        all_ms = _event_ms(lambda i: [GCK.group_chunk_partials(*a, out=buf)
+                                      for a in passes], iters=20)
+        plain_ms = _event_ms(
+            lambda i: GCK.group_chunk_partials_torch(*passes[0]), iters=10)
+        # the library route: ONE index_add_ of the count and the byte
+        # columns into int64[NC, H * L + 1] (the last slot takes the rows
+        # outside the pass), its operands made outside the timed window
+        cols = [(((vlo if c < 4 else vhi) >> (8 * (c % 4))) & 0xFF)
+                .to(torch.int64) for c in range(C_)]
+        src = torch.stack(cols + [torch.ones_like(cols[0])])
+        at = torch.where(inp, gid, H * L).long()
+        lib_ms = _event_ms(
+            lambda i: torch.zeros((C_ + 1, H * L + 1), dtype=torch.int64,
+                                  device=dev).index_add_(1, at, src),
+            iters=20)
+        del cols, src, at, inp
+        fn_c = lambda i: GB.group_count_chunks(*ops, C, bias)[0].cpu()  # noqa
+        fn_s = lambda i: GB.group_count_sum(*ops)[0].cpu()              # noqa
+        rec = {"name": "group_chunk_partials", "kernel": f"#{num}",
+               "route": "cuda", "source": _SOURCES["group_chunk_partials"],
+               "replaces": repl, "launches": rt["launches"],
+               "max_abs_err": 0, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": bound_by,
+               "library_ms": lib_ms, "query": f"{qname} chunk route",
+               "geometry": {"H": H, "L": L, "C": C_, "S": 8, "rows": n,
+                            "blocks": got.shape[0]},
+               "bytes": nbytes, "smem_atomics": atomics,
+               "bound_stream_ms": nbytes / stream * 1e3,
+               "ms_all_passes": all_ms,
+               "kernel3_ms_same_rows": k3[qname],
+               "route_wall_ms": _wall_ms(fn_c, iters=20),
+               "route_profile": _profile(fn_c, n=5),
+               "count_sum_route_wall_ms": _wall_ms(fn_s, iters=20),
+               "rows_per_s": n / (ms / 1e3),
+               "pct_of_stream_bw": 100.0 * nbytes / (ms / 1e3) / stream}
+        print(f"phase 5 chunk kernel #{num} ({qname}: {n} rows, H={H}, "
+              f"L={L}, C={C_}, {got.shape[0]} blocks): kernel {ms:.4f} ms per "
+              f"launch ({rt['launches']} launches {all_ms:.4f} ms), bound "
+              f"{bound_ms:.4f} ms by {bound_by} ({nbytes} B, {atomics} shared "
+              f"atomics), plain {plain_ms:.3f} ms, index_add_ {lib_ms:.3f} "
+              f"ms, kernel #3 on the same rows {k3[qname]:.4f} ms; whole "
+              f"group_count_chunks {rec['route_wall_ms']:.3f} ms against "
+              f"group_count_sum {rec['count_sum_route_wall_ms']:.3f} ms; "
+              f"profiled: {rec['route_profile']}")
+        out.append(rec)
+    return out
+
+
+def time_floats(calls):
+    out = {}
+    for name, fn in calls.items():
+        out[name] = {"wall_ms": _wall_ms(fn, iters=20),
+                     "profile": _profile(fn, n=5)}
+        print(f"phase 5 config6f {name}: {out[name]}")
+    return out
+
+
 # ------------------------------------------------ joins and tile sorts ---
 
 JOIN_SEED = 0xC0FFEE                  # bench_suite.py:642, config 5 alone
-NL5 = PACK_SIZE * N_PACKS // 16       # bench_suite.py:320 at its 64 packs
+NL5 = PACK_SIZE * N_PACKS // 4        # bench_suite.py:320 at 256 packs
 TAGBIT = 1 << 31
 
 
@@ -992,14 +1393,15 @@ def run_path(call):
     """Drive one main path with every launch counter at 0 just before it;
     returns its result and the counters just after."""
     import torch
+    from knoxdb_tpu_torch.ops import group_chunk_kernels as GCK
     from knoxdb_tpu_torch.ops import group_kernels as GK
     from knoxdb_tpu_torch.ops import scan_kernels as SK
     from knoxdb_tpu_torch.ops import sort_kernels as S8
-    for mod in (SK, GK, S8):
+    for mod in (SK, GK, S8, GCK):
         mod.reset_counts()
     out = call()
     torch.cuda.synchronize()
-    return out, {**SK.LAUNCHES, **GK.LAUNCHES, **S8.LAUNCHES}
+    return out, {**SK.LAUNCHES, **GK.LAUNCHES, **S8.LAUNCHES, **GCK.LAUNCHES}
 
 
 def need(launches, names, what):
@@ -1606,6 +2008,7 @@ def main() -> int:
     phase_kernels_vs_plain(dev)
     phase_split_kernels_vs_plain(dev)
     phase_group_kernels_vs_plain(dev)
+    phase_chunk_kernel_vs_plain(dev)
     phase_sort_kernel_vs_plain(dev)
     _mark("phase 3")
 
@@ -1682,7 +2085,11 @@ def main() -> int:
           f"to the exact python-int sums cast to f64; launches "
           f"{series_launches}")
 
-    _mark("group-by and series")
+    routes = {
+        "config3": phase_chunk_route("config3", sc3, sch3, data3, 1),
+        "config3c": phase_chunk_route("config3c", sc3c, sch3c, data3c, 8)}
+    float_calls = phase_floats(dev)
+    _mark("group-by, series, the chunk route and floats")
 
     # ---- phase 4: config #2 (unfused leaves and sums, every scheme of
     # its columns) and config #4 (ordered top-k) ----
@@ -1898,6 +2305,10 @@ def main() -> int:
         variants["fused_range_sum_masked"][0], path_ops, launches_by_kernel,
         stream, flush)
     records.extend(split_records)
+    records.extend(time_chunk_kernels(routes, records,
+                                      routes["config3c"]["ops"], stream,
+                                      dev))
+    stages["config6f"] = time_floats(float_calls)
     stages["layouts"] = layouts
     stages["config2"] = time_config2(sc2, sch2, queries2)
     stages["delta_decode"] = time_delta_decode(sc2)

@@ -11,13 +11,21 @@ exact partials that the host combines with python ints: masked per-plane
 popcounts {"pcnt", "cnt"} and tournament winners {"mnmx", "cnt"}, the
 same forms the fused scan kernels emit (ops/scan_kernels.py).
 
-Every integer scheme matches, aggregates and decodes: CONST, RAW,
-BITPACK (narrow and wide), DELTA, RLE and DICT (integer and bytes
-dictionaries). On the card the range-family leaves over BITPACK planes
-(narrow and wide) and DICT code planes run the hand-written ladder kernel and the
-BITPACK sums the popcount kernel (ops/scan_kernels.range_mask_count,
-masked_plane_popcounts). ALP (decimal-scaled float) packs raise
-NotImplementedError naming ROADMAP.md queue 1 item 4.
+Every scheme matches, aggregates and decodes: CONST, RAW, BITPACK
+(narrow and wide), DELTA, RLE, DICT (integer and bytes dictionaries) and
+ALP. On the card the range-family leaves over BITPACK planes (narrow and
+wide), ALP planes and DICT code planes run the hand-written ladder kernel
+and the BITPACK and ALP sums the popcount kernel
+(ops/scan_kernels.range_mask_count, masked_plane_popcounts).
+
+An ALP pack holds a FLOAT64 pack as decimal-scaled integers enc = round(v *
+10^e) less the pack's smallest, bit-packed like a wide BITPACK pack whose
+python-int base is that smallest enc: it matches on host-computed enc
+bounds (exec/rewrite._alp_consts), sums and min/maxes in the enc domain
+(the host divides by 10^e exactly), and decodes to its pack-relative enc.
+Float columns in any other scheme hold order-preserving keyform bits
+(utils/limbs.to_keyform): they match and min/max as integers, and sum as
+floats in a fixed log-depth pairwise order (group_masked_sum_float).
 
 Torch has no uint64. A decoded u64 key is a pair of int32-carried halves,
 an int64 with the same bits where it is only added, subtracted or
@@ -47,10 +55,9 @@ __all__ = ["DeviceGroup", "DeviceColumn", "DeviceSegment", "group_match",
            "group_decode_keys", "group_decode_limbs",
            "group_decode_limbs_abs", "add_base_limbs", "rle_row_runs",
            "rle_expand_mask", "rle_expand_values", "membership_bool",
-           "membership_words"]
+           "membership_words", "group_masked_sum_float", "keyform_to_float",
+           "pairwise_sum"]
 
-_TODO_ALP = ("ALP (decimal-scaled float) packs are not ported yet: "
-             "ROADMAP.md queue 1 item 4")
 _IN_SORT_MIN_K = 17    # below this the K-way EQ sweep is cheaper
 
 
@@ -267,9 +274,10 @@ def group_match(g: DeviceGroup, mode: FilterMode, consts: dict, W: int):
     constants of exec/rewrite.leaf_group_consts. Returns int32[Pg, W].
 
     Range-family modes (EQ, LT, LE, GT, GE, RANGE) over BITPACK planes
-    (narrow and wide) and DICT code planes arrive as "range" constants
-    and run the ladder kernel (ops/scan_kernels.range_mask_count); NE and small IN
-    lists stay on the ops/bitslice sweeps; IN lists of _IN_SORT_MIN_K keys
+    (narrow and wide), ALP planes and DICT code planes arrive as "range"
+    constants and run the ladder kernel (ops/scan_kernels.
+    range_mask_count); NE and small IN lists stay on the ops/bitslice
+    sweeps; IN lists of _IN_SORT_MIN_K keys
     or more take one merged sort (membership_bool) at any scheme."""
     N = W * 32
     not_in = mode == FilterMode.NOT_IN
@@ -278,10 +286,8 @@ def group_match(g: DeviceGroup, mode: FilterMode, consts: dict, W: int):
         return torch.zeros((g.npacks, W), dtype=torch.int32,
                            device=cm.device).masked_fill_(cm[:, None],
                                                           WD.FULL)
-    if g.scheme == Scheme.ALP:
-        raise NotImplementedError(f"group_match: {_TODO_ALP}")
 
-    if g.scheme in (Scheme.BITPACK, Scheme.DICT):
+    if g.scheme in (Scheme.BITPACK, Scheme.DICT, Scheme.ALP):
         planes = g.arrays["planes"]
         if "range" in consts:
             return SK.range_mask_count(planes, *consts["range"], None,
@@ -430,7 +436,7 @@ def _limbs_to_halves(values: torch.Tensor):
 def group_decode_halves(g: DeviceGroup, W: int):
     """Decode a group to u64 halves (lo int32[Pg, N], hi int32[Pg, N]),
     int32-carried: the value domain for narrow columns, the pack-relative
-    domain for wide BITPACK groups (their bases are python ints).
+    domain for wide BITPACK and ALP groups (their bases are python ints).
 
     BITPACK: the bit-transpose decode plus each pack's min_key, with the
     carry out of the low word; CONST: the pack value broadcast; DICT: the
@@ -442,8 +448,6 @@ def group_decode_halves(g: DeviceGroup, W: int):
     of the zigzag deltas; RLE: value differences scattered to the run
     starts and prefix-summed."""
     N = W * 32
-    if g.scheme == Scheme.ALP:
-        raise NotImplementedError(f"group decode: {_TODO_ALP}")
     if g.wide and g.scheme != Scheme.BITPACK:
         raise ValueError(
             f"group_decode_halves: a wide {g.scheme.name} group holds more "
@@ -468,7 +472,7 @@ def group_decode_halves(g: DeviceGroup, W: int):
         vlo, vhi = _limbs_to_halves(g.arrays["values"])
         return (torch.gather(vlo, 1, codes), torch.gather(vhi, 1, codes))
     lo, hi = S.decode_bitplanes_pair(g.arrays["planes"], g.width)
-    if g.wide:
+    if g.wide or g.scheme == Scheme.ALP:
         return lo, hi
     mlo, mhi = (WD.u32_to_i64(h)[:, None]
                 for h in WD.halves_of_bits(g.arrays["min_keys"]))
@@ -564,17 +568,15 @@ def group_masked_sum(g: DeviceGroup, mask_words):
     """Per-pack exact masked-sum partials; the host combines them with
     python ints (exec/scan._combine_sum). Always "cnt": int64[Pg], and:
 
-    - BITPACK (narrow and wide): "pcnt" int64[Pg, max(w,1)], the per-plane
-      masked popcounts from the popcount kernel (the host adds min_key or
-      the wide base times the count);
+    - BITPACK (narrow and wide) and ALP: "pcnt" int64[Pg, max(w,1)], the
+      per-plane masked popcounts from the popcount kernel (the host adds
+      min_key, the wide base or the ALP base times the count);
     - CONST: nothing more (the host multiplies the pack value);
     - wide RAW / RLE / DICT: "limb_sums" int64[L, Pg], per-limb sums;
     - narrow DELTA / RLE / RAW / DICT: "lo", "hi" int64[Pg], the sums of
       the value halves."""
-    if g.scheme == Scheme.ALP:
-        raise NotImplementedError(f"group_masked_sum: {_TODO_ALP}")
     W = mask_words.shape[1]
-    if g.scheme == Scheme.BITPACK:
+    if g.scheme in (Scheme.BITPACK, Scheme.ALP):
         pcnt, cnt = SK.masked_plane_popcounts(g.arrays["planes"], mask_words,
                                               g.width)
         return {"pcnt": pcnt, "cnt": cnt}
@@ -591,23 +593,59 @@ def group_masked_sum(g: DeviceGroup, mask_words):
             "hi": (WD.u32_to_i64(hi) * m).sum(dim=-1), "cnt": cnt}
 
 
+def keyform_to_float(lo, hi, ft: FieldType):
+    """Order-preserving float keyform (utils/limbs.to_keyform), as
+    int32-carried u64 halves, -> the floats: FLOAT64 from both halves,
+    FLOAT32 from the low word. A set top bit marks a value that was not
+    negative (flip the bit back); a clear one a negative value (complement
+    every bit). NaN comes back with the bits it went in with; -0.0 was
+    stored as +0.0 (the host maps both zeros onto one key)."""
+    if ft == FieldType.FLOAT32:
+        return torch.where(lo < 0, lo ^ WD._I32_MIN, ~lo).view(torch.float32)
+    k = WD.bits_i64(lo, hi)
+    return torch.where(k < 0, k ^ WD.I64_MIN, ~k).view(torch.float64)
+
+
+def pairwise_sum(vals: torch.Tensor) -> torch.Tensor:
+    """Sum along the last axis (a power-of-two length) in the reference's
+    fixed log-depth order: halve the axis, add the halves, repeat. IEEE
+    additions in one fixed order give the same bits on every device."""
+    n = vals.shape[-1]
+    while n > 1:
+        n //= 2
+        vals = vals[..., :n] + vals[..., n:2 * n]
+    return vals[..., 0]
+
+
+def group_masked_sum_float(g: DeviceGroup, mask_words, ft: FieldType):
+    """Per-pack masked float sums of a keyform float group (any scheme but
+    ALP): {"fsum": float64 or float32 [Pg], "cnt": int64[Pg]}, reduced with
+    pairwise_sum per pack, so a pack's sum depends on nothing but its rows
+    and the mask."""
+    W = mask_words.shape[1]
+    lo, hi = group_decode_halves(g, W)
+    vals = keyform_to_float(lo, hi, ft)
+    vals = torch.where(BS.unpack_mask(mask_words), vals,
+                       torch.zeros((), dtype=vals.dtype, device=vals.device))
+    return {"fsum": pairwise_sum(vals), "cnt": B.popcount_words(mask_words)}
+
+
 def group_masked_minmax(g: DeviceGroup, mask_words):
     """Per-pack masked (min, max) partials; empty packs are gated on
     "cnt" int64[Pg] by the host (exec/scan._combine_minmax). And:
 
-    - BITPACK (narrow and wide): "mnmx" int32[Pg, 4] (mn_lo, mn_hi, mx_lo,
-      mx_hi), pack-relative u32 halves from the plane tournament;
+    - BITPACK (narrow and wide) and ALP: "mnmx" int32[Pg, 4] (mn_lo,
+      mn_hi, mx_lo, mx_hi), pack-relative u32 halves from the plane
+      tournament;
     - CONST: nothing more;
     - wide RAW / RLE / DICT: "mn_limbs", "mx_limbs" int32[L, Pg];
     - narrow DELTA / RLE / RAW / DICT: "mn", "mx" order-preserving
       int64[Pg] keys."""
-    if g.scheme == Scheme.ALP:
-        raise NotImplementedError(f"group_masked_minmax: {_TODO_ALP}")
     W = mask_words.shape[1]
     cnt = B.popcount_words(mask_words)
     if g.scheme == Scheme.CONST:
         return {"cnt": cnt}
-    if g.scheme == Scheme.BITPACK:
+    if g.scheme in (Scheme.BITPACK, Scheme.ALP):
         planes = g.arrays["planes"]
         mn = B._tournament_planes(planes, mask_words, g.width, want_max=False)
         mx = B._tournament_planes(planes, mask_words, g.width, want_max=True)

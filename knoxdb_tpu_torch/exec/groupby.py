@@ -9,11 +9,18 @@ row from the compressed form without a hash table:
 - sparse key sets: a search of the row keys in the sorted domain;
 - time buckets: gid = (ts - t0) // interval (series path).
 
-Then per-group exact aggregation runs in one of two routes:
+Then per-group exact aggregation runs in one of these routes:
 - count and sum (`group_count_sum`, `group_moments_exact`): the CUDA
   group kernels of ops/group_kernels.py, with exact int64 sums of the u32
   value halves, at every G <= MAX_GROUPS;
+- count and byte-chunk sums (`group_count_chunks`): the reference's chunk
+  form through the CUDA kernel of ops/group_chunk_kernels.py, 8192 groups
+  per pass; held and timed beside the first route on the same operands;
 - count, sum, min and max (`group_aggregate`): plain torch scatters.
+
+The series kinds past the exact moments are plain torch: float moments
+(`group_moments`), first / last value by timestamp (`group_first_last`)
+and timestamp-run aggregates (`group_ts_runs`).
 
 Group cardinality is fixed per query from host metadata (dictionaries
 and zone maps). u64 keys live on the device as int32-carried halves or as
@@ -30,6 +37,7 @@ import torch
 from ..encode import schemes as S
 from ..encode.schemes import Scheme
 from ..ops import bitset as BS
+from ..ops import group_chunk_kernels as GCK
 from ..ops import group_kernels as GK
 from ..ops import words as WD
 from ..types import FieldType
@@ -38,7 +46,9 @@ from . import device as D
 __all__ = ["GroupPlan", "plan_groups", "plan_buckets", "segment_group_keys",
            "gid_consts", "row_gids", "chunk_plan", "mxu_chunk_sums",
            "square_halves", "halves_sum", "group_count_sum",
-           "group_moments_exact", "group_aggregate", "MAX_GROUPS"]
+           "group_count_chunks", "group_moments_exact", "group_aggregate",
+           "group_moments", "group_first_last", "group_ts_runs",
+           "f64_to_keyform", "keyform_to_f64", "MAX_GROUPS"]
 
 MAX_GROUPS = 1 << 16
 _I64_MAX = (1 << 63) - 1
@@ -326,6 +336,56 @@ def group_count_sum(gids, mask_words, value_pair, G: int):
                                    vlo.contiguous(), vhi.contiguous(), G)
 
 
+CHUNK_PASS_GROUPS = 8192     # groups one pass of the chunk kernel covers
+
+
+def _chunk_geometry(G: int) -> tuple[int, int]:
+    """(H, L) of the chunk kernel's [H, L * NC] histogram for G <= 8192
+    groups, gid = h * L + l: H = 128 and L doubling until H * L >= G; past
+    L = 32 the hi axis doubles to 256 instead (the reference's
+    _pallas_group_geometry, kept so that both produce the same partials)."""
+    H, L = 128, 1
+    while H * L < G:
+        L <<= 1
+    if L > 32:
+        H, L = 256, L >> 1
+    return H, L
+
+
+def group_count_chunks(gids, mask_words, value_pair, G: int,
+                       n_chunks: int = 8, bias: int = 0):
+    """Per-group (counts int64[G], chunks: n_chunks x int64[G]) with
+    chunks[c][g] = Σ byte c of (value - bias) over the rows of group g: the
+    counterpart of the reference's _group_pallas, through the chunk kernel
+    (ops/group_chunk_kernels.py). `mxu_chunk_sums(chunks)` gives the exact
+    python-int sums, to which the caller adds bias * counts.
+
+    Masked rows and rows with a gid outside [0, G) go to the sentinel gid
+    NP * GP, which no pass counts. G > 8192 takes NP = ceil(G / 8192) passes
+    of the same (H = 256, L = 32) launch on gid - p * 8192: a row outside
+    the pass has a negative or too large hi index and drops out. The blocks
+    of a pass are added in plain torch (the reference adds its tiles outside
+    its kernel too), and one partials buffer serves every pass."""
+    C = n_chunks
+    H, L = _chunk_geometry(min(G, CHUNK_PASS_GROUPS))
+    GP = H * L
+    NP = max(1, -(-G // GP))
+    shift = L.bit_length() - 1
+    ok = BS.unpack_mask(mask_words) & (gids >= 0) & (gids < G)
+    gid = torch.where(ok, gids, NP * GP).to(torch.int32).reshape(-1)
+    vlo, vhi = (v.reshape(-1).contiguous()
+                for v in _value_halves(value_pair, bias))
+    parts, accs = None, []
+    for p in range(NP):
+        parts = GCK.group_chunk_partials(gid - p * GP if p else gid, vlo, vhi,
+                                         H, L, shift, C, out=parts)
+        accs.append(parts.sum(dim=0, dtype=torch.float64).to(torch.int64)
+                    .view(GP, C + 1))
+    acc = torch.cat(accs) if NP > 1 else accs[0]
+    return acc[:G, C].contiguous(), tuple(acc[:G, c].contiguous()
+                                          for c in range(C))
+
+
 def group_moments_exact(gids, mask_words, rpair, qpair, G: int):
     """Per-group (counts, Σrlo, Σrhi, Σqlo, Σqhi) int64[G] in one pass of
     the moments kernel: the counterpart of the reference's
@@ -363,3 +423,207 @@ def group_aggregate(gids, mask_words, value_keys, G: int):
     mx = torch.full((G,), -_I64_MAX - 1, dtype=torch.int64, device=dev) \
         .scatter_reduce_(0, idx, k, "amax")
     return counts, sum_lo, sum_hi, mn, mx
+
+
+# ------------------------------------------------------- series kinds ----
+
+def f64_to_keyform(vf: torch.Tensor) -> torch.Tensor:
+    """float64 values -> their order-preserving u64 keyform as int64 bits
+    (utils/limbs.to_keyform on the device): a value with the sign bit set
+    has every bit complemented, any other its sign bit set. NaN with a
+    clear sign sorts above +inf, as on the host. The host maps -0.0 onto
+    +0.0's key first; this map, like the reference's, does not, and is
+    given ALP decodes only, which never yield -0.0."""
+    b = vf.view(torch.int64)
+    return torch.where(b < 0, ~b, b ^ WD.I64_MIN)
+
+
+def _signed_bias(bias: int) -> int:
+    """A u64 keyform bias as the int64 with the same bits: subtracting it
+    from int64-carried u64 bits wraps mod 2^64 as the u64 subtraction
+    does."""
+    bias &= (1 << 64) - 1
+    return bias - (1 << 64) if bias >> 63 else bias
+
+
+def keyform_to_f64(bits: torch.Tensor, bias: int) -> torch.Tensor:
+    """Integer keyform as int64 u64 bits -> float64 VALUES: (key - bias)
+    mod 2^64 read as int64 (exact below 2^53), bias = 2^(bits - 1) for
+    signed types. (Float keyforms decode with exec/device.
+    keyform_to_float.)"""
+    return (bits - _signed_bias(bias)).to(torch.float64)
+
+
+def _ok_rows(gids, mask_words, G: int):
+    return BS.unpack_mask(mask_words) & (gids >= 0) & (gids < G)
+
+
+def group_moments(gids, mask_words, vals, G: int, bias: int = 0,
+                  is_float: bool = False):
+    """Per-group float moments for the var / std reducers: (counts
+    int64[G], Σv float64[G], Σv² float64[G]) over value-domain float64.
+    vals: int64 u64-bits keyform for integer columns (with the type's
+    bias), float64 VALUES for float columns.
+
+    One index_add_ per output. The counts are exact. Each float sum is
+    taken in _SUM_LANES partial sums per group (a row adds to the lane of
+    its position), which are then added pairwise: a lane sees 1 / 32 of
+    the group's rows, so the rounding of a long sum shrinks with it, and on
+    the card the atomic adds spread over 32 addresses per group. The
+    additions land in the order the device takes them: on the CPU in row
+    order, on the card in the order its atomics complete, which changes
+    from run to run, so the sums' low bits depend on the device (the
+    reference sums each pack's sorted rows by prefix-sum differences and
+    promises only a fixed order per segment geometry). Each sum is within
+    (n / 32 + 5) * eps * Σ|v| of the exact one, n the rows of the group."""
+    ok = _ok_rows(gids, mask_words, G).reshape(-1)
+    row = torch.nonzero(ok).reshape(-1)
+    g = gids.reshape(-1)[row].long()
+    v = vals.reshape(-1)[row]
+    if not is_float:
+        v = keyform_to_f64(v, bias)
+    dev = gids.device
+    counts = torch.zeros(G, dtype=torch.int64, device=dev) \
+        .index_add_(0, g, torch.ones_like(g))
+    lane = g * _SUM_LANES + (row & (_SUM_LANES - 1))
+    return counts, _lane_sum(lane, v, G), _lane_sum(lane, v * v, G)
+
+
+_SUM_LANES = 32
+
+
+def _lane_sum(lane, v, G: int):
+    """Σv per group through _SUM_LANES partial sums each (lane = group *
+    _SUM_LANES + the row's lane), added pairwise."""
+    acc = torch.zeros(G * _SUM_LANES, dtype=torch.float64, device=v.device) \
+        .index_add_(0, lane, v)
+    return D.pairwise_sum(acc.view(G, _SUM_LANES))
+
+
+def group_first_last(gids, mask_words, ts_keys, val_bits, G: int):
+    """Per-group FIRST and LAST value by timestamp, exact. ts_keys:
+    order-preserving int64 [P, N] (ops/words.ordered_i64); val_bits: int64
+    payload bits [P, N] (u64 keyform, or raw float64 bits). Returns
+    (first_ts, first_val, last_ts, last_val, counts) int64[G], the ts in
+    the order-preserving form, the values as bits.
+
+    First = the smallest ts, ties to the earliest pack and row; last = the
+    largest ts, ties to the latest pack and row (the reference sorts each
+    pack stably by (gid, ts) and breaks ties between packs the same way).
+    Empty groups read (u64 max, 0) and (0, 0). Four min / max scatters, no
+    sort: min and max do not depend on the order of the updates."""
+    ok = _ok_rows(gids, mask_words, G).reshape(-1)
+    row = torch.nonzero(ok).reshape(-1)
+    idx = gids.reshape(-1)[row].long()
+    ts = ts_keys.reshape(-1)[row]
+    dev = gids.device
+    big = torch.iinfo(torch.int64)
+
+    def full(v):
+        return torch.full((G,), v, dtype=torch.int64, device=dev)
+
+    counts = full(0).index_add_(0, idx, torch.ones_like(idx))
+    t_min = full(big.max).scatter_reduce_(0, idx, ts, "amin")
+    t_max = full(big.min).scatter_reduce_(0, idx, ts, "amax")
+    r_first = full(big.max).scatter_reduce_(
+        0, idx, torch.where(ts == t_min[idx], row, big.max), "amin")
+    r_last = full(-1).scatter_reduce_(
+        0, idx, torch.where(ts == t_max[idx], row, -1), "amax")
+    has = counts > 0
+    vals = val_bits.reshape(-1)
+    last_row = vals.numel() - 1
+    f_val = torch.where(has, vals[r_first.clamp(max=last_row)], 0)
+    l_val = torch.where(has, vals[r_last.clamp(min=0)], 0)
+    return t_min, f_val, t_max, l_val, counts
+
+
+def group_ts_runs(gids, mask_words, ts_keys, val_bits, G: int, bias: int):
+    """Per-bucket TS-RUN aggregates for the *_join reducers: rows that share
+    one timestamp are summed, then the base reducer applies to the
+    per-timestamp sums. One global stable sort of the segment by (gid, ts),
+    as two stable passes, lines equal-ts rows up as runs; differences of an
+    int64 prefix sum, which wraps mod 2^64 as the reference's u64 does,
+    give exact split-limb run sums. A timestamp may also appear in other
+    segments, so each bucket's FIRST and LAST run come back on their own
+    (ts, count, limb sums) for the host to merge, and only the interior
+    runs are reduced here.
+
+    ts_keys: order-preserving int64 [P, N]; val_bits: int64 u64-bits
+    keyform [P, N]; bias: the value type's keyform bias (2^(bits - 1) if
+    signed, else 0); run sums are in the VALUE domain mod 2^64.
+
+    Returns [G] tensors (n_runs, first_ts, first_cnt, first_lo, first_hi,
+    last_ts, last_cnt, last_lo, last_hi, int_min, int_max, int_n, int_sum,
+    int_sumsq): int64 but for the float64 int_sum and int_sumsq; ts,
+    int_min and int_max in the order-preserving form (empty: u64 max for
+    first_ts and int_min, 0 for last_ts and int_max); lo / hi the sums of
+    the values' u32 halves. All are exact but int_sum and int_sumsq, which
+    are float64 sums of the interior runs' sums taken as in group_moments
+    (see there for what that promises)."""
+    dev = gids.device
+    i64 = torch.iinfo(torch.int64)
+    U, Z = i64.max, i64.min          # u64 max and 0, order-preserving form
+    ok = _ok_rows(gids, mask_words, G).reshape(-1)
+    gid = torch.where(ok, gids.reshape(-1), G).long()
+    M = gid.numel()
+    o1 = torch.sort(ts_keys.reshape(-1), stable=True).indices
+    order = o1[torch.sort(gid[o1], stable=True).indices]
+    gs = gid[order]
+    ts = ts_keys.reshape(-1)[order]
+    inb = gs < G                       # in-bound rows are a prefix
+    minb = inb.sum()
+    sb = _signed_bias(bias)
+    v = torch.where(inb, val_bits.reshape(-1)[order] - sb, 0)
+
+    idx = torch.arange(M, dtype=torch.int64, device=dev)
+    chg = torch.ones(M, dtype=torch.bool, device=dev)
+    chg[1:] = (gs[1:] != gs[:-1]) | (ts[1:] != ts[:-1])
+    # run r covers [starts[r], starts[r + 1]) cut to the in-bound prefix
+    starts = torch.sort(torch.where(inb & chg, idx, M)).values
+    nxt = torch.cat([starts[1:], starts.new_full((1,), M)])
+    s_c = torch.minimum(starts, minb)
+    e_c = torch.minimum(nxt, minb)
+    run_valid = starts < minb
+    gpos = starts.clamp(max=M - 1)
+    run_gid = torch.where(run_valid, gs[gpos], G)
+    run_ts = torch.where(run_valid, ts[gpos], Z)
+    run_cnt = e_c - s_c
+    z1 = v.new_zeros(1)
+    clo = torch.cat([z1, torch.cumsum(v & 0xFFFFFFFF, 0)])
+    chi = torch.cat([z1, torch.cumsum(WD.lsr64(v, 32), 0)])
+    run_lo = clo[e_c] - clo[s_c]       # exact: <= M * 2^32 < 2^63
+    run_hi = chi[e_c] - chi[s_c]
+
+    # per-bucket run boundaries (the runs are sorted by (gid, ts))
+    lbr = torch.searchsorted(run_gid, torch.arange(G + 1, device=dev))
+    n_runs = lbr[1:] - lbr[:-1]
+    has = n_runs > 0
+    fi = lbr[:-1].clamp(max=M - 1)
+    li = (lbr[1:] - 1).clamp(0, M - 1)
+
+    def pick(a, at, empty):
+        return torch.where(has, a[at], empty)
+
+    # interior runs: every run but its bucket's first and last
+    rg = run_gid.clamp(max=G)
+    m_int = run_valid & (idx != lbr[rg]) \
+        & (idx != lbr[(rg + 1).clamp(max=G)] - 1)
+    s_mod = run_lo + (run_hi << 32)    # the run's sum mod 2^64
+    ri = run_gid[m_int]
+    s_f = s_mod[m_int].to(torch.float64)       # signed reading
+    i_n = torch.zeros(G, dtype=torch.int64, device=dev) \
+        .index_add_(0, ri, torch.ones_like(ri))
+    lane = ri * _SUM_LANES + (torch.nonzero(m_int).reshape(-1)
+                              & (_SUM_LANES - 1))
+    i_sum = _lane_sum(lane, s_f, G)
+    i_sumsq = _lane_sum(lane, s_f * s_f, G)
+    # interior min / max over the order-preserving keyform of the sums
+    sk = (s_mod[m_int] + sb) ^ WD.I64_MIN
+    i_min = torch.full((G,), U, dtype=torch.int64, device=dev) \
+        .scatter_reduce_(0, ri, sk, "amin")
+    i_max = torch.full((G,), Z, dtype=torch.int64, device=dev) \
+        .scatter_reduce_(0, ri, sk, "amax")
+    return (n_runs, pick(run_ts, fi, U), pick(run_cnt, fi, 0),
+            pick(run_lo, fi, 0), pick(run_hi, fi, 0),
+            pick(run_ts, li, Z), pick(run_cnt, li, 0), pick(run_lo, li, 0),
+            pick(run_hi, li, 0), i_min, i_max, i_n, i_sum, i_sumsq)

@@ -20,19 +20,22 @@ packs on the host, where u64 and python-int arithmetic is exact:
   "dict_mask", a bool verdict per dictionary entry.
 - DELTA: "lo" / "hi" as order-preserving int64 python ints.
 - RLE / RAW: int32-carried u32 limb constants for the limb compare.
+- ALP: float constants become per-pack bounds in the enc domain, decided
+  in the double domain (encode/alp.enc_bounds), then relate to the packs'
+  python-int bases like wide BITPACK constants: range-family modes give
+  "range" operands, NE and IN lists per-key relations.
 - CONST packs: fully decided on the host -> bool verdict per pack.
-
-ALP (decimal-scaled float) packs raise NotImplementedError naming
-ROADMAP.md queue 1 item 4.
 """
 
 from __future__ import annotations
 
 import bisect
+import math
 
 import numpy as np
 import torch
 
+from ..encode.alp import enc_bounds
 from ..encode.schemes import Scheme
 from ..ops import bitslice as B
 from ..ops import scan_kernels as SK
@@ -40,6 +43,7 @@ from ..ops import words as WD
 from ..pack.segment import EncodedColumn
 from ..query.filter import Filter
 from ..types import FilterMode
+from ..utils import limbs as lb
 from .device import _IN_SORT_MIN_K, DeviceGroup, base_limbs
 
 __all__ = ["leaf_group_consts", "leaf_group_static"]
@@ -48,8 +52,6 @@ _MISS = 1 << 63          # sentinel: outside every packed domain
 _IN_DICT_MASK_MIN_K = 64  # from here on a dictionary IN takes a dict mask
 _RANGE_MODES = (FilterMode.RANGE, FilterMode.GT, FilterMode.GE,
                 FilterMode.LT, FilterMode.LE, FilterMode.EQ)
-_TODO_ALP = ("ALP (decimal-scaled float) predicates are not ported yet: "
-             "ROADMAP.md queue 1 item 4")
 
 
 def _pow2_pad(n: int) -> int:
@@ -81,7 +83,7 @@ def leaf_group_consts(leaf: Filter, col: EncodedColumn, g: DeviceGroup,
         return {"const_match": torch.from_numpy(
             _const_verdicts(leaf, col, g)).to(device)}
     if g.scheme == Scheme.ALP:
-        return _alp_consts(leaf, g)
+        return _alp_consts(leaf, g, device)
 
     if g.scheme == Scheme.DICT:
         if mode in _RANGE_MODES:
@@ -269,11 +271,83 @@ def _mode_to_range_host(mode: FilterMode, lo: int, hi: int):
 # ---------------------------------------------------------------- alp ---
 
 def _alp_keybound(key: int, ft) -> float:
-    raise NotImplementedError(_TODO_ALP)
+    """Exact float bound from a keyform key. The optimizer's strict-bound
+    merges (query/filter._merge_and_bounds: GT -> key + 1, LT -> key - 1)
+    step by one ulp in keyform space; converting the key back gives the
+    INCLUSIVE float bound, so `x > 5.0 AND x <= 10.0` drops 5.0 on ALP
+    packs as on keyform packs. Keys in the NaN keyform regions clamp to
+    +-inf (ALP packs hold finite values only)."""
+    L = ft.nlimbs
+    k_lo = k_hi = 0
+    for l_lo, l_hi in zip(lb.scalar_to_keyform(-math.inf, ft),
+                          lb.scalar_to_keyform(math.inf, ft)):
+        k_lo = (k_lo << 32) | l_lo
+        k_hi = (k_hi << 32) | l_hi
+    key = min(max(key, k_lo), k_hi)
+    parts = tuple((key >> (32 * (L - 1 - l))) & 0xFFFFFFFF for l in range(L))
+    return float(lb.keyform_to_scalar(parts, ft))
 
 
-def _alp_consts(leaf: Filter, g: DeviceGroup):
-    raise NotImplementedError(f"leaf_group_consts: {_TODO_ALP}")
+def _open_sides(P: int):
+    """The relations of a bound that is absent: (below every pack's domain,
+    above every pack's domain), for the open side of a range."""
+    z = np.zeros(P, np.uint64)
+    no, yes = np.zeros(P, bool), np.ones(P, bool)
+    return (z, no, yes, no), (z, yes, no, no)
+
+
+def _alp_consts(leaf: Filter, g: DeviceGroup, device):
+    """Float predicates -> per-pack bounds in the ALP enc domain, exact in
+    the double domain (encode/alp.enc_bounds), related to each pack's
+    python-int base. v < c becomes enc <= (the largest enc that decodes
+    below c) and v > c the mirror; GE / LE / RANGE bounds come from the
+    merged keyform keys (_alp_keybound), not from leaf.value, which loses
+    strictness after the optimizer's merges. Range-family modes give the
+    ladder kernel's "range" operands; NE and IN lists per-key relations."""
+    m = leaf.mode
+    ft = leaf.field.type
+    miss = 1 << 62
+
+    def bounds_for(c: float):
+        return [enc_bounds(float(c), e) for e in g.exps]
+
+    def rel(cs):
+        return _wide_rel_list(cs, g.bases, g.width)
+
+    def eq_encs(c):
+        return [eq if eq is not None else miss for _, _, eq in bounds_for(c)]
+
+    if m in (FilterMode.IN, FilterMode.NOT_IN):
+        vals = list(leaf.value)
+        vals += [vals[0]] * (_pow2_pad(len(vals)) - len(vals))
+        return {"rels": [B.rel_to_device(rel(eq_encs(v)), g.width, device)
+                         for v in vals]}
+    if m == FilterMode.NE:
+        return {"rel": B.rel_to_device(rel(eq_encs(leaf.value)), g.width,
+                                       device)}
+    lo = hi = None
+    if m == FilterMode.RANGE:
+        lo = [ge for _, ge, _ in bounds_for(_alp_keybound(leaf.key, ft))]
+        hi = [le for le, _, _ in bounds_for(_alp_keybound(leaf.key_hi, ft))]
+    elif m == FilterMode.EQ:
+        lo = hi = eq_encs(leaf.value)
+    elif m == FilterMode.LT:
+        hi = [le - 1 if eq is not None else le
+              for le, _, eq in bounds_for(leaf.value)]
+    elif m == FilterMode.LE:
+        hi = [le for le, _, _ in bounds_for(_alp_keybound(leaf.key, ft))]
+    elif m == FilterMode.GT:
+        lo = [ge + 1 if eq is not None else ge
+              for _, ge, eq in bounds_for(leaf.value)]
+    elif m == FilterMode.GE:
+        lo = [ge for _, ge, _ in bounds_for(_alp_keybound(leaf.key, ft))]
+    else:
+        raise ValueError(f"alp rewrite: {m}")
+    below, above = _open_sides(g.npacks)
+    return {"range": tuple(
+        WD.to_words(a, device) for a in SK.range_consts_rel(
+            below if lo is None else rel(lo),
+            above if hi is None else rel(hi), g.width))}
 
 
 # --------------------------------------------------------------- wide ---
@@ -315,10 +389,7 @@ def _wide_bitpack_consts(leaf: Filter, g: DeviceGroup, device):
         # the ladder kernel's operands, as narrow groups get them: the
         # bounds relate to each pack's python-int base exactly, and an open
         # side (None) lies outside every pack's domain
-        P = g.npacks
-        z = np.zeros(P, np.uint64)
-        no, yes = np.zeros(P, bool), np.ones(P, bool)
-        below, above = (z, no, yes, no), (z, yes, no, no)
+        below, above = _open_sides(g.npacks)
         key = int(leaf.key)
         lo, hi = {FilterMode.RANGE: (key, leaf.key_hi),
                   FilterMode.EQ: (key, key),

@@ -15,8 +15,10 @@ Per query:
 3. ONE fused scan kernel (ops/scan_kernels.py) runs every fused AND
    leaf's ladder on that mask and emits every fused aggregate's partials;
    aggregates that do not fuse run after it (exec/device.py: the popcount
-   kernel for BITPACK sums, per-scheme decodes for the rest);
-4. the host combines the per-pack partials exactly with python ints;
+   kernel for BITPACK and ALP sums, per-scheme decodes for the rest, a
+   fixed pairwise order for keyform float sums);
+4. the host combines the per-pack partials exactly with python ints (ALP
+   sums as exact rationals, divided once);
 5. with project=, the mask becomes a selection vector (ops/compact.py),
    each projected column is decoded to keyform limbs and gathered at it
    on the device, and only the selected rows cross to the host
@@ -33,6 +35,7 @@ its full signature too.
 from __future__ import annotations
 
 from dataclasses import dataclass, field as dc_field
+from fractions import Fraction
 
 import numpy as np
 import torch
@@ -323,79 +326,162 @@ class SegmentScanner:
 
     def series_scan(self, tree: Node | None, time_field: str, kinds: dict,
                     gplan, exclude_words=None):
-        """Per-bucket reducer partials for the series layer. This slice
-        ports the exact moments route: kinds {field: ("moments",)} on
-        integer fields whose rebased zone-map range fits 32 bits
-        (exec/groupby.chunk_plan gives at most 4 byte chunks). Returns
-        {(field, "moments"): (n int64[G], sum f64[G], sumsq f64[G])}, the
-        exact python-int sums cast to f64 once.
+        """Per-bucket reducer partials for the series layer.
 
-        The value r = key - gmin (< 2^32) and its square run through the
-        moments kernel in one pass; the host recombines the value-domain
-        sums with python ints: value = r + base, base = gmin - sign
-        offset."""
+        kinds: {field: iterable from {"moments", "firstlast", "tsruns",
+        "fminmax"}}. Returns {(field, kind): tuple of numpy arrays}:
+          moments   -> (n int64[G], sum f64[G], sumsq f64[G])
+          firstlast -> (first_ts, first_val, last_ts, last_val u64[G],
+                        counts int64[G]); ts and integer values in keyform,
+                        float values as raw float64 bits
+          tsruns    -> the 14 arrays of exec/groupby.group_ts_runs, its
+                        order-preserving outputs as u64 keyform
+          fminmax   -> (n int64[G], min u64[G], max u64[G]) in the FLOAT
+                        keyform (keyform packs stay integers; ALP packs
+                        decode to float64 and map through f64_to_keyform)
+
+        Moments of an integer field whose rebased zone-map range fits 32
+        bits (exec/groupby.chunk_plan gives at most 4 byte chunks) are
+        exact: r = key - gmin and its square run through the moments kernel
+        in one pass, and the host recombines python-int sums (value = r +
+        base, base = gmin - sign offset), cast to f64 once. Float fields
+        and wider integers take exec/groupby.group_moments, whose float
+        sums' low bits depend on the device.
+
+        An ALP pack decodes as (enc + base) / 10^e, a true IEEE division in
+        float64 by a divisor built on the host, which reproduces the
+        encoder's round trip bit for bit."""
         from . import groupby as GB
         d = self.d
         fields = sorted(kinds)
-        todo = "ROADMAP.md queue 1 item 7"
-        bases = {}
-        for f in fields:
-            other = sorted(set(kinds[f]) - {"moments"})
-            if other:
-                raise NotImplementedError(
-                    f"series_scan {f}: kinds {other} are not ported yet: "
-                    f"{todo}")
+        kspec = tuple((f, tuple(sorted(kinds[f]))) for f in fields)
+        meta, mplan = {}, {}
+        for f, fk in kspec:
+            unknown = set(fk) - {"moments", "firstlast", "tsruns", "fminmax"}
+            if unknown:
+                raise ValueError(f"series_scan {f}: kinds {sorted(unknown)}")
             ft = d.seg.columns[f].field.type
-            if ft.is_float:
-                raise NotImplementedError(
-                    f"series_scan {f}: float moments are not ported yet: "
-                    f"{todo}")
-            n_chunks, gmin = GB.chunk_plan(d.seg.stats.fields.get(f))
-            if n_chunks > 4:
-                raise NotImplementedError(
-                    f"series_scan {f}: moments of values spanning more "
-                    f"than 32 bits (the reference's sort route) are not "
-                    f"ported yet: {todo}")
-            bases[f] = gmin
+            meta[f] = ((1 << (ft.bits - 1)) if ft.is_signed else 0,
+                       ft.is_float)
+            if "moments" in fk and not ft.is_float:
+                n_chunks, gmin = GB.chunk_plan(d.seg.stats.fields.get(f))
+                if n_chunks <= 4:
+                    mplan[f] = gmin
         mask_fn, margs = self.prepare(tree, [], exclude_words)
         used = sorted(set([time_field] + fields))
         mode_tags = tuple(m[0] for m in gplan.mode)
-        sig = ("series", d.sig(used), time_field, tuple(fields), mode_tags,
-               gplan.G, exclude_words is not None,
+        sig = ("series", d.sig(used), time_field, kspec, mode_tags,
+               gplan.G, exclude_words is not None, tuple(sorted(mplan)),
                self._plan_sigs[id(mask_fn)])
         sfn = self._fns.get(sig)
         if sfn is None:
             groups = d.column(time_field).groups
             G = gplan.G
 
-            def sfn(margs, gconsts, bases):
+            def sfn(margs, gconsts, mbase):
                 mask, _, _ = mask_fn(*margs)
                 gids = GB.row_gids(mode_tags, groups, gconsts, d.P, d.W)
+                ts_keys = None
                 out = {}
-                for f in fields:
-                    pair = self._decode_rows(f, D.group_decode_halves)
-                    rlo, rhi = GB._value_halves(pair, bases[f])
-                    out[f] = GB.group_moments_exact(
-                        gids, mask, (rlo, rhi), GB.square_halves(rlo), G)
+                for f, fk in kspec:
+                    bias, is_float = meta[f]
+                    if is_float:
+                        vf = self._decode_f64(f)
+                        vk = vf.view(torch.int64)
+                    else:
+                        vf = None
+                        pair = self._decode_rows(f, D.group_decode_halves)
+                        vk = WD.bits_i64(*pair)
+                    if "fminmax" in fk:
+                        c, _lo, _hi, mn, mx = GB.group_aggregate(
+                            gids, mask, self._decode_fkey(f, vf), G)
+                        out[(f, "fminmax")] = (c, mn, mx)
+                    if "moments" in fk and f in mplan:
+                        rlo, rhi = GB._value_halves(pair, mbase[f])
+                        out[(f, "moments")] = GB.group_moments_exact(
+                            gids, mask, (rlo, rhi), GB.square_halves(rlo), G)
+                    elif "moments" in fk:
+                        out[(f, "moments")] = GB.group_moments(
+                            gids, mask, vf if is_float else vk, G, bias,
+                            is_float)
+                    if ts_keys is None and ("firstlast" in fk
+                                            or "tsruns" in fk):
+                        ts_keys = self._decode_rows(time_field,
+                                                    D.group_decode_keys)
+                    if "firstlast" in fk:
+                        out[(f, "firstlast")] = GB.group_first_last(
+                            gids, mask, ts_keys, vk, G)
+                    if "tsruns" in fk:
+                        out[(f, "tsruns")] = GB.group_ts_runs(
+                            gids, mask, ts_keys, vk, G, bias)
                 return out
 
             self._fns[sig] = sfn
 
-        out = sfn(margs, GB.gid_consts(gplan, d.device), bases)
+        out = sfn(margs, GB.gid_consts(gplan, d.device), mplan)
+
+        def ordered(t):
+            return WD.u64_from_ordered(t.cpu().numpy())
+
+        def bits(t):
+            return t.cpu().numpy().view(np.uint64)
+
         res = {}
-        for f in fields:
-            c, sr_lo, sr_hi, sq_lo, sq_hi = out[f]
-            ft = d.seg.columns[f].field.type
-            counts = c.cpu().numpy()
-            s_r = GB.halves_sum(sr_lo, sr_hi)
-            s_q = GB.halves_sum(sq_lo, sq_hi)
-            base = bases[f] - ((1 << (ft.bits - 1)) if ft.is_signed else 0)
-            no = counts.astype(object)
-            res[(f, "moments")] = (
-                counts, (base * no + s_r).astype(np.float64),
-                (no * (base * base) + (2 * base) * s_r + s_q)
-                .astype(np.float64))
+        for (f, kind), v in out.items():
+            if kind == "moments" and f in mplan:
+                c, sr_lo, sr_hi, sq_lo, sq_hi = v
+                counts = c.cpu().numpy()
+                s_r = GB.halves_sum(sr_lo, sr_hi)
+                s_q = GB.halves_sum(sq_lo, sq_hi)
+                base = mplan[f] - meta[f][0]
+                no = counts.astype(object)
+                res[(f, kind)] = (
+                    counts, (base * no + s_r).astype(np.float64),
+                    (no * (base * base) + (2 * base) * s_r + s_q)
+                    .astype(np.float64))
+            elif kind == "moments":
+                res[(f, kind)] = tuple(t.cpu().numpy() for t in v)
+            elif kind == "fminmax":
+                res[(f, kind)] = (v[0].cpu().numpy(), ordered(v[1]),
+                                  ordered(v[2]))
+            elif kind == "firstlast":
+                res[(f, kind)] = (ordered(v[0]), bits(v[1]), ordered(v[2]),
+                                  bits(v[3]), v[4].cpu().numpy())
+            else:
+                # tsruns: ts, int_min and int_max are order-preserving,
+                # the limb sums plain bits, the rest int64 / float64
+                conv = {1: ordered, 5: ordered, 9: ordered, 10: ordered,
+                        3: bits, 4: bits, 7: bits, 8: bits}
+                res[(f, kind)] = tuple(
+                    conv[i](t) if i in conv else t.cpu().numpy()
+                    for i, t in enumerate(v))
         return res
+
+    def _decode_f64(self, fname: str) -> torch.Tensor:
+        """A float column as float64 VALUES [P, N]: ALP packs through
+        their pack's base and exponent, the others from their keyform."""
+        ft = self.d.seg.columns[fname].field.type
+
+        def one(g, W):
+            lo, hi = D.group_decode_halves(g, W)
+            if g.scheme != Scheme.ALP:
+                return D.keyform_to_float(lo, hi, ft).to(torch.float64)
+            base = torch.tensor([float(b) for b in g.bases],
+                                dtype=torch.float64, device=lo.device)
+            scale = torch.tensor([10.0 ** e for e in g.exps],
+                                 dtype=torch.float64, device=lo.device)
+            enc = WD.bits_i64(lo, hi).to(torch.float64)
+            return (enc + base[:, None]) / scale[:, None]
+        return self._decode_rows(fname, one)
+
+    def _decode_fkey(self, fname: str, vf) -> torch.Tensor:
+        """A float column as order-preserving int64 keys of its FLOAT
+        keyform [P, N]: keyform packs pass through as integers (no float
+        round trip); a column with ALP packs maps its decoded values vf."""
+        from . import groupby as GB
+        if any(g.scheme == Scheme.ALP for g in self.d.column(fname).groups):
+            return GB.f64_to_keyform(vf) ^ WD.I64_MIN
+        return self._decode_rows(fname, D.group_decode_keys)
 
     def _decode_rows(self, fname: str, dec):
         """One column decoded over the whole segment: dec(group, W) ->
@@ -530,6 +616,9 @@ class SegmentScanner:
                        for i, f in leaves.items() if not skip_leaf[i]}
         agg_groups = {name: d.column(name).groups for name in agg_fields}
         agg_specs = [(a.op, a.field) for a in aggs]
+        float_types = {name: d.seg.columns[name].field.type
+                       for name in agg_fields
+                       if d.seg.columns[name].field.type.is_float}
 
         if fuse[0] == "multi":
             _tag, f_entries, f_fields, f_aspec = fuse
@@ -601,11 +690,18 @@ class SegmentScanner:
                 elif op in ("min", "max") and fname in fused_mm:
                     parts.append([fused_mm[fname]])
                 elif op in ("sum", "avg", "min", "max"):
-                    agg = D.group_masked_sum if op in ("sum", "avg") \
-                        else D.group_masked_minmax
-                    parts.append([agg(g, mask if g.npacks == d.P
-                                      else mask[g.idx_t])
-                                  for g in agg_groups[fname]])
+                    col_parts = []
+                    for g in agg_groups[fname]:
+                        gmask = mask if g.npacks == d.P else mask[g.idx_t]
+                        if op in ("min", "max"):
+                            col_parts.append(D.group_masked_minmax(g, gmask))
+                        elif fname in float_types \
+                                and g.scheme != Scheme.ALP:
+                            col_parts.append(D.group_masked_sum_float(
+                                g, gmask, float_types[fname]))
+                        else:
+                            col_parts.append(D.group_masked_sum(g, gmask))
+                    parts.append(col_parts)
                 else:
                     raise ValueError(f"agg op {op}")
             return mask, cnt, parts
@@ -692,10 +788,26 @@ class SegmentScanner:
             out[m] = arr[cd[m]]
         return out
 
-    def _float_alp_values(self, col, limbs, idx_np):
-        raise NotImplementedError(
-            f"materializing {col.field.name}: ALP float packs are not ported "
-            f"yet: ROADMAP.md queue 1 item 4")
+    def _float_alp_values(self, col, limbs: np.ndarray, idx_np: np.ndarray):
+        """FLOAT64 rows from mixed ALP / keyform packs. ALP rows arrive as
+        their pack-relative enc in two limbs; enc stays below 2^52, so the
+        float64 add and numpy's correctly rounded divide reproduce the
+        encoder's round trip exactly."""
+        N = self.d.N
+        n = limbs.shape[1]
+        out = np.empty(n, np.float64)
+        packs = (idx_np[:n] // N).astype(np.int64)
+        k64 = WD.join_u64(limbs[1], limbs[0])
+        for p in np.unique(packs):
+            ep = col.packs[int(p)]
+            m = packs == p
+            if ep.scheme == Scheme.ALP:
+                out[m] = (np.float64(ep.min_key)
+                          + k64[m].astype(np.float64)) / (10.0 ** ep.exp)
+            else:
+                out[m] = lb.from_keyform(
+                    np.stack([limbs[0][m], limbs[1][m]]), col.field.type)
+        return out
 
     def _wide_values(self, col, limbs: np.ndarray, idx_np: np.ndarray):
         """Recombine wide rows: the device limbs hold either full RAW /
@@ -748,10 +860,11 @@ class SegmentScanner:
         of exec/device.group_masked_sum), in python ints, then the signed
         keyform bias: Σ_p 2^p·pcnt[:, p] plus min_key (or the wide base)
         times the count; the pack value times the count; per-limb sums
-        weighted by 2^32 per limb; lo + 2^32·hi."""
+        weighted by 2^32 per limb; lo + 2^32·hi. Float columns: ALP packs
+        give exact rationals (enc sum / 10^e), keyform packs the device's
+        pairwise float sums; one division and one addition round."""
         if ft.is_float:
-            raise NotImplementedError(
-                "float sums are not ported yet: ROADMAP.md queue 1 item 4")
+            return SegmentScanner._combine_sum_float(parts, groups)
         total = 0
         cnt = 0
         for part, g in zip(parts, groups):
@@ -782,6 +895,30 @@ class SegmentScanner:
         return total, cnt
 
     @staticmethod
+    def _combine_sum_float(parts, groups):
+        frac = Fraction(0)
+        fl = 0.0
+        any_frac = False
+        cnt = 0
+        for part, g in zip(parts, groups):
+            c = part["cnt"].cpu().numpy()
+            cnt += int(c.sum())
+            if g.scheme == Scheme.ALP:
+                pc = part["pcnt"].cpu().numpy().astype(object)
+                weights = np.array([1 << p for p in range(pc.shape[1])],
+                                   object)
+                rel = (pc * weights[None, :]).sum(axis=1)
+                for j in range(len(c)):
+                    enc = int(rel[j]) + g.bases[j] * int(c[j])
+                    frac += Fraction(enc, 10 ** g.exps[j])
+                any_frac = True
+            else:
+                fl += float(part["fsum"].cpu().numpy().sum())
+        if any_frac and fl == 0.0:
+            return float(frac), cnt       # the fully exact path
+        return (float(frac) + fl if any_frac else fl), cnt
+
+    @staticmethod
     def _combine_minmax(parts, groups, ft: FieldType, want_min: bool,
                         col=None):
         """The best value over every non-empty pack's winner (the forms of
@@ -792,6 +929,16 @@ class SegmentScanner:
         for part, g in zip(parts, groups):
             c = part["cnt"].cpu().numpy()
             hit = np.flatnonzero(c)
+            if g.scheme == Scheme.ALP:
+                # pack-relative enc halves; the python-int division by 10^e
+                # is the exact decode
+                mm = WD.from_words(part["mnmx"])
+                for j in hit:
+                    rel = int(mm[j, mcol[0]]) | (int(mm[j, mcol[1]]) << 32)
+                    v = (g.bases[j] + rel) / (10 ** g.exps[j])
+                    if best is None or (v < best if want_min else v > best):
+                        best = v
+                continue
             if "mnmx" in part:
                 mm = WD.from_words(part["mnmx"])
                 keys = [(int(mm[j, mcol[0]]) | (int(mm[j, mcol[1]]) << 32))

@@ -40,7 +40,13 @@ _MAX_PLANES = 272           # widest rebased key the descent takes
 
 def _flat_keys_u64(scanner, fname: str) -> torch.Tensor:
     """Decode a narrow column to flat order-preserving int64 keys [P*N]
-    (value domain)."""
+    (value domain). A float column with ALP packs orders by the float
+    keyform of its decoded values: an ALP pack's own keys are relative to
+    its pack's base and exponent and do not compare across packs (the
+    reference sorts those, ROADMAP.md section 3)."""
+    if any(g.scheme == Scheme.ALP for g in scanner.d.column(fname).groups):
+        return scanner._decode_fkey(
+            fname, scanner._decode_f64(fname)).reshape(-1)
     return scanner._decode_rows(fname, D.group_decode_keys).reshape(-1)
 
 

@@ -106,3 +106,24 @@ def test_group_by_delta_column(mx):
     np.testing.assert_array_equal(tcounts, np.asarray(rcounts))
     assert [int(x) for x in tres["a"][0]] == [int(x) for x in rres["a"][0]]
     assert int(tcounts.sum()) == int((mx.data["a"] >= 10).sum())
+
+
+@pytest.mark.parametrize("fname", ["all", "half", "none"])
+def test_float_column_aggs(mx, fname):
+    """The FLOAT64 column (ALP packs beside a keyform pack): the ALP packs'
+    exact rational sum plus the keyform pack's pairwise float sum, min and
+    max in the value domain; bit-identical with the reference."""
+    spec, m = _filters(mx.data)[fname]
+    ops = ["count", "sum", "min", "max", "avg"]
+    rtree, ttree = mx.trees(spec) if spec else (None, None)
+    r = mx.rsc.scan(rtree, [RAgg(op, "f" if op != "count" else "")
+                            for op in ops])
+    t = mx.tsc.scan(ttree, [TAgg(op, "f" if op != "count" else "")
+                            for op in ops])
+    assert t.count == r.count == int(m.sum())
+    assert t.aggs == r.aggs
+    vals = mx.data["f"][m]
+    assert t.aggs[("min", "f")] == (vals.min() if len(vals) else None)
+    assert t.aggs[("max", "f")] == (vals.max() if len(vals) else None)
+    if len(vals):
+        assert abs(t.aggs[("sum", "f")] - vals.sum()) <= 1e-9 * len(vals)

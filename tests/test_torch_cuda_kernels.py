@@ -1,5 +1,5 @@
-"""CUDA scan (fused, split and strided), group and tile-sort kernels vs
-their plain PyTorch versions, on the card.
+"""CUDA scan (fused, split and strided), group, group-chunk and tile-sort
+kernels vs their plain PyTorch versions, on the card.
 
 The kernels have no CPU mode, so these tests skip without a GPU; run them
 on one with `python -m pytest -m cuda tests/test_torch_cuda_kernels.py`.
@@ -275,6 +275,92 @@ def test_tile_sort_wrapper_rejects_bad_operands(cuda):
         S8.tile_bitonic_sort(k, k.cpu())
     with pytest.raises(ValueError):
         S8.tile_bitonic_sort(k[:1000], k[:1000])
+
+
+def _chunk_case(rng, n, H, L, C, device, lo=-5000, extra=5000):
+    gid = rng.integers(lo, H * L + extra, n).astype(np.int32)
+    gid[:4] = [-1, -(1 << 31), (1 << 31) - 1, H * L]
+    vlo = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    vhi = rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    return (torch.from_numpy(gid).to(device), WD.to_words(vlo, device),
+            WD.to_words(vhi, device))
+
+
+@pytest.mark.parametrize("band", [False, True])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.int32])
+@pytest.mark.parametrize("H,L,shift,C,S", [
+    (128, 8, 3, 4, 8), (128, 8, 3, 4, 16), (128, 8, 3, 4, 32),
+    (128, 8, 3, 6, 8), (256, 32, 5, 6, 8), (256, 32, 5, 6, 32),
+    (128, 1, 0, 8, 8), (256, 16, 4, 0, 8)])
+def test_chunk_kernel_equals_plain(cuda, H, L, shift, C, S, out_dtype, band):
+    """Kernels #6 / #7 against the plain version, bit for bit: both probe
+    geometries (the second needs 224 KiB of dynamic shared memory), both
+    output types and layouts, a ragged last block, negative and sentinel
+    gids."""
+    from knoxdb_tpu_torch.ops import group_chunk_kernels as GCK
+    rng = np.random.default_rng(H + L + C + S)
+    n = S * 1024 * 5 + 777
+    gid, vlo, vhi = _chunk_case(rng, n, H, L, C, cuda)
+    before = GCK.LAUNCHES["group_chunk_partials"]
+    got = GCK.group_chunk_partials(gid, vlo, vhi, H, L, shift, C, S=S,
+                                   out_dtype=out_dtype, band=band)
+    torch.cuda.synchronize()
+    assert GCK.LAUNCHES["group_chunk_partials"] == before + 1
+    want = GCK.group_chunk_partials_torch(gid, vlo, vhi, H, L, shift, C, S,
+                                          out_dtype, band)
+    _same(got, want, "partials")
+    assert float(got.sum()) > 0
+
+
+def test_chunk_kernel_one_hot_group(cuda):
+    """Every row in one group: the most contended cell, 255 * S * 1024 in
+    float32 exactly; and the out= buffer is written in place."""
+    from knoxdb_tpu_torch.ops import group_chunk_kernels as GCK
+    n = 32 * 1024 * 3
+    gid = torch.full((n,), 999, dtype=torch.int32, device=cuda)
+    vlo = torch.full((n,), -1, dtype=torch.int32, device=cuda)
+    vhi = torch.zeros(n, dtype=torch.int32, device=cuda)
+    out = torch.empty((3, 128, 40), dtype=torch.float32, device=cuda)
+    got = GCK.group_chunk_partials(gid, vlo, vhi, 128, 8, 3, 4, S=32,
+                                   out=out)
+    assert got is out
+    _same(got, GCK.group_chunk_partials_torch(gid, vlo, vhi, 128, 8, 3, 4,
+                                              32), "partials")
+    assert float(got.max()) == 255.0 * 32 * 1024
+
+
+def test_chunk_wrapper_rejects_bad_operands(cuda):
+    from knoxdb_tpu_torch.ops import group_chunk_kernels as GCK
+    g = torch.zeros(8192, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        GCK.group_chunk_partials(g, g.cpu(), g, 128, 8, 3, 4)
+    with pytest.raises(ValueError):
+        GCK.group_chunk_partials(g, g, g, 256, 32, 5, 8)    # 288 KiB
+    with pytest.raises(ValueError):
+        GCK.group_chunk_partials(g, g[::2], g, 128, 8, 3, 4)
+
+
+def test_group_count_chunks_on_card(cuda):
+    """The chunk route = the exact-halves route, 1 and 3 launches."""
+    from knoxdb_tpu_torch.exec import groupby as TGB
+    from knoxdb_tpu_torch.ops import group_chunk_kernels as GCK
+    rng = np.random.default_rng(5)
+    P, N = 4, 16384
+    for G, launches in ((1000, 1), (20000, 3)):
+        gids = torch.from_numpy(rng.integers(-2, G + 3, (P, N))
+                                .astype(np.int32)).to(cuda)
+        vals = rng.integers(0, 1 << 48, (P, N), dtype=np.uint64)
+        lo, hi = WD.split_u64(vals)
+        pair = (WD.to_words(lo, cuda), WD.to_words(hi, cuda))
+        words = WD.to_words(np.stack(
+            [TBS.np_pack_mask(rng.random(N) < 0.7) for _ in range(P)]), cuda)
+        before = GCK.LAUNCHES["group_chunk_partials"]
+        counts, chunks = TGB.group_count_chunks(gids, words, pair, G, 6, 0)
+        assert GCK.LAUNCHES["group_chunk_partials"] == before + launches
+        c2, s_lo, s_hi = TGB.group_count_sum(gids, words, pair, G)
+        _same(counts, c2, "counts")
+        sums = TGB.mxu_chunk_sums([c.cpu().numpy() for c in chunks])
+        assert list(sums) == list(TGB.halves_sum(s_lo, s_hi))
 
 
 def test_kernels_build_from_csrc(cuda, tmp_path, monkeypatch):

@@ -122,9 +122,37 @@ def test_group_decode_schemes_covered(segs):
 
 
 def test_group_decode_unported_schemes_raise():
-    """Every integer scheme decodes; ALP packs wait (queue 1 item 4)."""
-    g = TD.DeviceGroup(Scheme.ALP, 8, 0, 2, False, np.zeros(1, np.int64))
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        TD.group_decode_halves(g, 32)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        TD.group_decode_keys(g, 32)
+    """No scheme is left that raises: ALP packs decode too, to their
+    pack-relative enc (the base is a python int on the host), halves, keys
+    and limbs equal to the reference's."""
+    rng = np.random.default_rng(6)
+    pack, P = 1024, 3
+    n = pack * P
+    data = {"id": np.arange(1, n + 1, dtype=np.uint64),
+            "p": np.round(rng.uniform(-50.0, 900.0, n), 3)}
+    rseg = r_build(RBuilder("t").pk("id").add("p", RFT.FLOAT64).finish(),
+                   data, pack_size=pack)
+    rdev = RD.DeviceSegment(rseg)
+    tdev = TD.DeviceSegment(segment_from_reference(rseg), "cpu")
+    tgroups = tdev.column("p").groups
+    assert {g.scheme for g in tgroups} == {Scheme.ALP}
+    for rg, tg in zip(rdev.column("p").groups, tgroups):
+        assert rg.sig() == tg.sig()
+        assert tg.bases == rg.bases and tg.exps == rg.exps
+        rlo, rhi = RD.group_decode_halves(rg.sig(), rg.arrays, rdev.W)
+        tlo, thi = TD.group_decode_halves(tg, tdev.W)
+        np.testing.assert_array_equal(WD.from_words(tlo), np.asarray(rlo))
+        np.testing.assert_array_equal(WD.from_words(thi), np.asarray(rhi))
+        np.testing.assert_array_equal(
+            WD.u64_from_ordered(TD.group_decode_keys(tg, tdev.W).numpy()),
+            np.asarray(RD.group_decode_keys(rg.sig(), rg.arrays, rdev.W)))
+        np.testing.assert_array_equal(
+            WD.from_words(TD.group_decode_limbs(tg, tdev.W)),
+            np.asarray(RD.group_decode_limbs(rg.sig(), rg.arrays, rdev.W)))
+        # enc = relative + base decodes to the stored doubles
+        enc = WD.join_u64(WD.from_words(tlo), WD.from_words(thi)) \
+            .astype(np.int64)
+        for j, pi in enumerate(tg.idx):
+            vals = (enc[j] + tg.bases[j]) / 10.0 ** tg.exps[j]
+            np.testing.assert_array_equal(
+                vals, data["p"][pi * pack:(pi + 1) * pack])

@@ -283,11 +283,25 @@ def test_series_moments(cfg6, G, iv, spec):
 
 
 def test_series_unported_kinds_raise(cfg6):
+    """No series kind is left that raises: firstlast, tsruns and fminmax,
+    float moments and moments of values spanning more than 32 bits all run
+    and agree with the reference (tests/test_torch_series_kinds.py holds
+    every kind in depth); only an unknown kind raises."""
+    rplan = RGB.plan_buckets(cfg6.rsc.d, "ts", 1_000_000, 64, 64)
     tplan = TGB.plan_buckets(cfg6.tsc.d, "ts", 1_000_000, 64, 64)
     for kinds in ({"val": ("firstlast",)}, {"val": ("moments", "tsruns")},
                   {"val": ("fminmax",)}):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            cfg6.tsc.series_scan(None, "ts", kinds, tplan)
+        want = cfg6.rsc.series_scan(None, "ts", kinds, rplan)
+        got = cfg6.tsc.series_scan(None, "ts", kinds, tplan)
+        assert got.keys() == want.keys()
+        for k in want:
+            for i, (a, b) in enumerate(zip(got[k], want[k])):
+                if k[1] == "tsruns" and i >= 12:
+                    np.testing.assert_allclose(a, np.asarray(b), rtol=1e-9)
+                else:
+                    np.testing.assert_array_equal(a, np.asarray(b))
+    with pytest.raises(ValueError, match="kinds"):
+        cfg6.tsc.series_scan(None, "ts", {"val": ("median",)}, tplan)
     rng = np.random.default_rng(2)
     n = 1024
     eng = Engines([("ts", "UINT64", {}), ("f", "FLOAT64", {}),
@@ -297,9 +311,16 @@ def test_series_unported_kinds_raise(cfg6):
                    "f": rng.random(n),
                    "u": rng.integers(0, 1 << 63, n, dtype=np.uint64)},
                   pack=1024)
+    rplan = RGB.plan_buckets(eng.rsc.d, "ts", 0, 64, 64)
     tplan = TGB.plan_buckets(eng.tsc.d, "ts", 0, 64, 64)
     # float moments, and moments of values spanning more than 32 bits
-    # (the reference's sort route)
+    # (the reference's sort route): counts equal, sums to 1e-12
     for f in ("f", "u"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            eng.tsc.series_scan(None, "ts", {f: ("moments",)}, tplan)
+        want = eng.rsc.series_scan(None, "ts", {f: ("moments",)}, rplan)
+        got = eng.tsc.series_scan(None, "ts", {f: ("moments",)}, tplan)
+        n_, s1, s2 = got[(f, "moments")]
+        np.testing.assert_array_equal(n_, np.asarray(want[(f, "moments")][0]))
+        np.testing.assert_allclose(s1, np.asarray(want[(f, "moments")][1]),
+                                   rtol=1e-12)
+        np.testing.assert_allclose(s2, np.asarray(want[(f, "moments")][2]),
+                                   rtol=1e-12)

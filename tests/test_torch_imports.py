@@ -17,7 +17,8 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m)\n"
         "for m in ('exec.scan', 'exec.groupby', 'exec.device', 'exec.join',\n"
         "          'ops.group_kernels', 'ops.cuda_build', 'ops.compact',\n"
-        "          'ops.sort_kernels', 'encode.schemes'):\n"
+        "          'ops.sort_kernels', 'ops.group_chunk_kernels',\n"
+        "          'encode.schemes', 'encode.alp', 'exec.rewrite'):\n"
         "    assert 'knoxdb_tpu_torch.' + m in mods, mods\n"
         "assert 'jax' not in sys.modules and 'knoxdb_tpu' not in sys.modules\n"
         "assert 'torch' in sys.modules\n"

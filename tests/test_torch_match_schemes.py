@@ -101,3 +101,21 @@ def test_or_of_schemes(mx):
     want = (((d["a"] >= 50) & (d["a"] <= 120)) | (d["d"] < dq)
             | (d["r"] > 1 << 39)) & (d["s"].astype(str) >= "v060")
     _check(mx, spec, want)
+
+
+@pytest.mark.parametrize("mode", ["EQ", "NE", "LT", "GE", "RANGE", "IN"])
+def test_float_leaves(mx, mode):
+    """The FLOAT64 column's ALP packs match on host-computed enc bounds,
+    its keyform pack as integers; masks equal the reference's and IEEE
+    compares."""
+    col = mx.data["f"]
+    on, off = float(col[5]), float(col[2 * PACK + 5])    # ALP, keyform pack
+    for v in (on, off, 0.005):
+        value = {"RANGE": (min(v, 200.0), max(v, 200.0)),
+                 "IN": [v, float(col[9])]}.get(mode, v)
+        r, t = mx.masks(("leaf", "f", mode, value))
+        np.testing.assert_array_equal(t, r)
+        np.testing.assert_array_equal(
+            np.unpackbits(np.ascontiguousarray(t).view(np.uint8),
+                          bitorder="little").astype(bool),
+            oracle_mask(mx.data, "f", mode, value))

@@ -135,8 +135,9 @@ def test_scan_stream(eng, batch_packs):
 
 
 def test_unported_decode_raises(eng):
-    """The pk's DELTA packs decode and project; ALP packs still wait for
-    ROADMAP.md queue 1 item 4."""
+    """The pk's DELTA packs decode and project, and so do ALP packs now
+    (no scheme is left that raises): an ALP group's limbs are its
+    pack-relative enc, high limb first."""
     from knoxdb_tpu_torch.exec import device as TD
     _rsch, _tsch, data, rsc, tsc = eng
     assert tsc.d.column("id").groups[0].scheme == Scheme.DELTA
@@ -144,9 +145,16 @@ def test_unported_decode_raises(eng):
     t = tsc.scan(None, [TAgg("count")], project=["id"])
     _same_rows(r, t, ["id"])
     np.testing.assert_array_equal(t.rows["id"], data["id"])
-    g = TD.DeviceGroup(Scheme.ALP, 8, 0, 2, False, np.zeros(1, np.int64))
-    with pytest.raises(NotImplementedError, match="item 4"):
-        TD.group_decode_limbs(g, 32)
+    from knoxdb_tpu_torch.ops import words as WD
+    planes = np.zeros((8, 1, 1), np.uint32)
+    planes[0, 0, 0] = 0b1010                 # rows 1 and 3 hold enc bit 0
+    planes[3, 0, 0] = 0b1000                 # row 3 holds enc bit 3
+    g = TD.DeviceGroup(Scheme.ALP, 8, 0, 2, False, np.zeros(1, np.int64),
+                       arrays={"planes": WD.to_words(planes, "cpu")},
+                       bases=[-5], exps=[2])
+    limbs = WD.from_words(TD.group_decode_limbs(g, 1))
+    assert limbs.shape == (2, 1, 32) and not limbs[0].any()
+    assert limbs[1, 0, :5].tolist() == [0, 1, 0, 9, 0]
 
 
 def test_include_words_projection(eng, rng):

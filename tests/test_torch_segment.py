@@ -116,3 +116,35 @@ def test_segment_from_reference_equals_own_build(rng):
     assert type(carried) is TSEG.Segment
     assert type(carried.columns["u64"].packs[0]) is \
         type(own.columns["u64"].packs[0])
+
+
+def test_float_packs_carried_unchanged(rng):
+    """segment_from_reference carries ALP packs (base, exponent, planes) and
+    keyform float packs as they are, and the port's own build gives the
+    same packs."""
+    from knoxdb_tpu_torch.encode.schemes import Scheme
+    n = 1024 * 4
+    f = np.round(rng.uniform(-50.0, 50.0, n), 3)
+    f[1024:2048] = rng.standard_normal(1024)          # no exponent fits
+    f[2048:3072] = 7.25                               # one value
+    data = {"id": np.arange(1, n + 1, dtype=np.uint64), "f": f,
+            "g": rng.standard_normal(n).astype(np.float32)}
+    schs = []
+    for B, FT in ((RBuilder, RFT), (TBuilder, TFT)):
+        schs.append(B("t").pk("id").add("f", FT.FLOAT64)
+                    .add("g", FT.FLOAT32).finish())
+    rseg = RSEG.build_segment(schs[0], data, pack_size=1024)
+    carried = TSEG.segment_from_reference(rseg)
+    own = TSEG.build_segment(schs[1], data, pack_size=1024)
+    assert_segments_equal(rseg, carried)
+    assert_segments_equal(own, carried)
+    packs = carried.columns["f"].packs
+    assert [p.scheme for p in packs][0] == Scheme.ALP
+    assert packs[1].scheme != Scheme.ALP
+    for rp, tp in zip(rseg.columns["f"].packs, packs):
+        assert int(tp.scheme) == int(rp.scheme)
+        assert (tp.min_key, tp.exp, tp.width) == (rp.min_key, rp.exp,
+                                                  rp.width)
+        if rp.planes is not None:
+            np.testing.assert_array_equal(tp.planes, rp.planes)
+    assert packs[0].exp == 3 and isinstance(packs[0].min_key, int)

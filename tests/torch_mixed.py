@@ -1,6 +1,7 @@
 """One mixed-scheme reference segment for the parity tests of the port:
 every integer column scheme (CONST, RAW, BITPACK narrow and wide, DELTA,
-RLE, DICT with integer and bytes dictionaries) in a few small packs,
+RLE, DICT with integer and bytes dictionaries) and a FLOAT64 column with
+ALP and keyform packs, in a few small packs,
 built by knoxdb_tpu and carried into knoxdb_tpu_torch with
 segment_from_reference, so that both engines scan the very same packs."""
 
@@ -27,7 +28,7 @@ PACK = 1024
 P = 6
 COLS = [("d", "UINT64"), ("r", "INT64"), ("w", "INT64"), ("a", "UINT64"),
         ("k", "UINT32"), ("s", "STRING"), ("big", "INT128"),
-        ("h", "INT256")]
+        ("h", "INT256"), ("f", "FLOAT64")]
 BIG0 = -(1 << 100) + 12345          # wide BITPACK bases
 BIG1 = (1 << 120) + 99
 H0 = (1 << 200) - 777
@@ -56,7 +57,7 @@ def mixed_data(seed: int = 7):
             h[i] = (int(rng.integers(-1 << 62, 1 << 62)) << 190) + off
         else:
             h[i] = H0 + p * (1 << 70) + off
-    return {
+    data = {
         "id": np.arange(1, n + 1, dtype=np.uint64),
         # DELTA that crosses 2^63
         "d": (np.uint64((1 << 63) - 3000)
@@ -70,6 +71,11 @@ def mixed_data(seed: int = 7):
         "s": svals[rng.integers(0, len(svals), n)],           # bytes DICT
         "big": big, "h": h,
     }
+    # drawn last, so the columns above keep their values: two decimals
+    # (ALP packs), but for pack 2's full-precision doubles (keyform)
+    f = np.round(rng.uniform(-300.0, 700.0, n), 2)
+    data["f"] = np.where(pack == 2, rng.standard_normal(n) * 50.0, f)
+    return data
 
 
 class Mixed:
@@ -102,6 +108,8 @@ class Mixed:
                 "a": {S.BITPACK}, "k": {S.DICT}, "s": {S.DICT},
                 "big": {S.BITPACK, S.CONST, S.RAW},
                 "h": {S.BITPACK, S.RAW}}
+        fs = set(self.schemes("f"))
+        assert S.ALP in fs and len(fs) >= 2, fs
         for name, schemes in want.items():
             assert set(self.schemes(name)) == schemes, (name,
                                                         self.schemes(name))
