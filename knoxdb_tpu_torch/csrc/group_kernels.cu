@@ -14,36 +14,53 @@
 // as u64 (int64 tensors on the Python side). Rows that are masked out or
 // whose gid lies outside [0, G) contribute nothing (the reference's
 // sentinel bin). Each sum is below n * 2^32 < 2^63 for n < 2^31 rows (the
-// wrapper's limit), so it is exact; integer atomics commute, so results
+// wrapper's limit), so it is exact; integer additions commute, so results
 // are deterministic and bit-exact whatever the order of the blocks.
 //
-// Design: a grid-stride loop over rows, about 4 blocks of 256 threads per
-// SM, each thread loading UNROLL rows before it updates any group.
-//   - Small G (G * (1 + 2K) * 8 bytes <= 48 KB): each block privatises the
-//     whole histogram in shared memory (shared-memory atomicAdd) and flushes
-//     each nonzero entry with one global atomicAdd at the end.
-//   - Large G: rows update the output in global memory directly. Collisions
-//     are rare at large G, and the 24-40 bytes per group of the output stay
-//     in the 50 MB L2 up to G = 65,536. (The reference's multi-pass trick
-//     over group ranges, groupby.py:712-717, is not needed.)
-//
 // What bounds it on the H100: bytes, 12 B/row for K = 1 (gid and two value
-// words; the mask adds 1/8 B/row) and 20 B/row for K = 2, plus atomics
-// contention when few groups take many rows (G = 1 serialises every update
-// of a block on one shared-memory word; warp-level aggregation with
-// __match_any_sync would cure that).
+// words; the mask adds 1/8 B/row) and 20 B/row for K = 2, over 3.35 TB/s.
 //
-// First target for a later perf PR: fuse the bit-transpose decode of gid
-// and of the values into this kernel, so the decoded [n] columns never go
-// through device memory (they now cost a write and a read each).
+// Design (the launch geometry comes from ops/group_kernels.group_tile_plan):
+//   - A persistent grid of at most two blocks per SM walks the rows in
+//     chunks of 1024 (chunk c goes to block c % grid). Each block is one
+//     producer warp and eight consumer warps. The producer keeps a ring of
+//     2-4 stages full: one chunk's gid, value words and mask words arrive
+//     by 1-D bulk copies (TMA) on the stage's mbarrier, so 25-60 KiB per
+//     block are in flight while the consumers add.
+//   - A consumer thread takes 4 rows of a stage as one 16-byte vector per
+//     column and the 4 mask bits from the chunk's mask word in shared
+//     memory, adds them, and then releases the stage.
+//   - Small G (the histogram fits beside the ring in a block's 227 KB):
+//     32-bit shared-memory counters, exact by construction, flushed into
+//     the u64 output with one global atomicAdd per nonzero entry:
+//       LIMBS: each value word is split into 16-bit limbs, each summed in
+//              its own u32 counter; a block flushes every flush_chunks
+//              chunks (<= 64, so <= 65,536 rows: 65,536 * 65,535 < 2^32);
+//       CARRY: each word is summed in one u32 counter, and a second u32
+//              counts the wraps the atomic's returned old value shows
+//              (old + v < old); the block flushes once.
+//     Large G: GLOBAL, each row adds to the u64 output in L2 directly (the
+//     24-40 bytes per group stay in the 50 MB L2 up to G = 65,536; the
+//     chunk kernel's multi-pass form loses 4.2x there).
+//
+// What it replaces in the earlier body (grid-stride scalar loads, 4 rows per
+// thread, 1 + 2K 64-bit shared atomicAdds per row, 528 blocks each
+// flushing 3G u64 atomics): the 64-bit shared atomics become 32-bit ones
+// (the SASS of the earlier body and the measurement are in PERF.md);
+// the scalar 4-byte loads and the per-row mask reload become bulk copies
+// and 16-byte shared-memory vectors; the flush shrinks to one per block
+// (CARRY) or per 65,536 rows (LIMBS).
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper_async.cuh"
 
-#define KNOX_GROUP_THREADS 256
-#define KNOX_GROUP_BLOCKS_PER_SM 4
-#define KNOX_GROUP_UNROLL 4
-#define KNOX_GROUP_SMEM_BUDGET (48 * 1024)
+#define KNOX_GROUP_CONSUMERS 256
+#define KNOX_GROUP_THREADS (KNOX_GROUP_CONSUMERS + 32)
+#define KNOX_GROUP_CHUNK 1024              // rows per stage, 4 per consumer
+#define KNOX_GROUP_MAX_STAGES 8
+#define KNOX_GROUP_LIMB_CHUNKS 64          // 64 * 1024 * 65,535 < 2^32
+#define KNOX_SMEM_MAX 232448               // a block's dynamic shared memory
+
+enum { GROUP_GLOBAL = 0, GROUP_LIMBS = 1, GROUP_CARRY = 2 };
 
 struct GroupParams {
     const int32_t* gid;          // [n]
@@ -52,95 +69,194 @@ struct GroupParams {
     unsigned long long* out;     // [1 + 2K, G], zeroed by the caller
     long long n;
     int G;
+    int stages;                  // ring stages
+    int flush_chunks;            // chunks between flushes (LIMBS)
 };
 
-template <int K, bool SHARED>
-__global__ void __launch_bounds__(KNOX_GROUP_THREADS)
-group_sums_kernel(const GroupParams p) {
-    constexpr int R = 1 + 2 * K;
-    extern __shared__ unsigned long long hist[];    // [R, G] when SHARED
-    const int G = p.G;
-    unsigned long long* acc = SHARED ? hist : p.out;
-    if (SHARED) {
-        for (int i = threadIdx.x; i < R * G; i += blockDim.x) hist[i] = 0ull;
-        __syncthreads();
+template <int NV>
+__host__ __device__ constexpr int stage_bytes() {
+    return KNOX_GROUP_CHUNK * 4 * (1 + NV) + KNOX_GROUP_CHUNK / 8;
+}
+
+__device__ __forceinline__ void consumers_sync() {
+    asm volatile("bar.sync 1, %0;" :: "n"(KNOX_GROUP_CONSUMERS) : "memory");
+}
+
+// One passing row of group g with value words v[0..NV).
+template <int NV, int MODE>
+__device__ __forceinline__ void add_row(uint32_t* hist,
+                                        unsigned long long* out, int G,
+                                        int g, const uint32_t (&v)[NV]) {
+    if (MODE == GROUP_GLOBAL) {
+        atomicAdd(out + g, 1ull);
+#pragma unroll
+        for (int k = 0; k < NV; ++k)
+            if (v[k]) atomicAdd(out + (size_t)(1 + k) * G + g,
+                                (unsigned long long)v[k]);
+        return;
     }
-    const long long stride = (long long)gridDim.x * blockDim.x;
-    for (long long base = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-         base < p.n; base += stride * KNOX_GROUP_UNROLL) {
-        int g[KNOX_GROUP_UNROLL];
-        bool ok[KNOX_GROUP_UNROLL];
-        uint32_t v[KNOX_GROUP_UNROLL][2 * K];
+    atomicAdd(hist + g, 1u);
 #pragma unroll
-        for (int u = 0; u < KNOX_GROUP_UNROLL; ++u) {
-            const long long i = base + u * stride;
-            ok[u] = false;
-            g[u] = 0;
-            if (i < p.n) {
-                g[u] = __ldg(p.gid + i);
-                const uint32_t w = __ldg(p.mask + (i >> 5));
-                ok[u] = ((w >> (i & 31)) & 1u) && (unsigned)g[u] < (unsigned)G;
-            }
-#pragma unroll
-            for (int k = 0; k < 2 * K; ++k)
-                v[u][k] = ok[u] ? __ldg(p.vals[k] + i) : 0u;
-        }
-#pragma unroll
-        for (int u = 0; u < KNOX_GROUP_UNROLL; ++u) {
-            if (!ok[u]) continue;
-            atomicAdd(acc + g[u], 1ull);
-#pragma unroll
-            for (int k = 0; k < 2 * K; ++k)
-                if (v[u][k])
-                    atomicAdd(acc + (long long)(1 + k) * G + g[u],
-                              (unsigned long long)v[u][k]);
-        }
-    }
-    if (SHARED) {
-        __syncthreads();
-        for (int g = threadIdx.x; g < G; g += blockDim.x) {
-            const unsigned long long c = hist[g];
-            if (c == 0ull) continue;
-            atomicAdd(p.out + g, c);
-#pragma unroll
-            for (int r = 1; r < R; ++r) {
-                const unsigned long long s = hist[r * G + g];
-                if (s) atomicAdd(p.out + (long long)r * G + g, s);
-            }
+    for (int k = 0; k < NV; ++k) {
+        uint32_t* a = hist + (size_t)(1 + 2 * k) * G + g;
+        uint32_t* b = a + G;
+        if (MODE == GROUP_LIMBS) {
+            const uint32_t lo = v[k] & 0xFFFFu, hi = v[k] >> 16;
+            if (lo) atomicAdd(a, lo);
+            if (hi) atomicAdd(b, hi);
+        } else if (v[k]) {
+            const uint32_t old = atomicAdd(a, v[k]);
+            if (old + v[k] < old) atomicAdd(b, 1u);
         }
     }
 }
 
+// Adds the block's counters into the u64 output and zeroes them; every
+// consumer thread calls it.
+template <int NV, int MODE>
+__device__ __forceinline__ void flush(uint32_t* hist, unsigned long long* out,
+                                      int G, int t) {
+    consumers_sync();
+    for (int g = t; g < G; g += KNOX_GROUP_CONSUMERS) {
+        const uint32_t c = hist[g];
+        if (!c) continue;
+        hist[g] = 0u;
+        atomicAdd(out + g, (unsigned long long)c);
+#pragma unroll
+        for (int k = 0; k < NV; ++k) {
+            uint32_t* a = hist + (size_t)(1 + 2 * k) * G + g;
+            const unsigned long long s = MODE == GROUP_LIMBS
+                ? (unsigned long long)a[0] + ((unsigned long long)a[G] << 16)
+                : (unsigned long long)a[0] + ((unsigned long long)a[G] << 32);
+            a[0] = 0u;
+            a[G] = 0u;
+            if (s) atomicAdd(out + (size_t)(1 + k) * G + g, s);
+        }
+    }
+    consumers_sync();
+}
+
+template <int K, int MODE>
+__global__ void __launch_bounds__(KNOX_GROUP_THREADS)
+group_sums_kernel(const GroupParams p) {
+    constexpr int NV = 2 * K;
+    constexpr int R = KNOX_GROUP_CHUNK;
+    constexpr int SB = stage_bytes<NV>();
+    extern __shared__ __align__(16) unsigned char smem[];
+    const int S = p.stages, G = p.G;
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+    uint64_t* empty = full + S;
+    unsigned char* ring = smem + 16 * S;
+    uint32_t* hist = reinterpret_cast<uint32_t*>(ring + (size_t)S * SB);
+    const long long nchunks = (p.n + R - 1) / R;
+    const int lane = threadIdx.x & 31;
+
+    if (threadIdx.x == 0) {
+        for (int s = 0; s < S; ++s) {
+            mbar_init(full + s, 1);
+            mbar_init(empty + s, KNOX_GROUP_CONSUMERS / 32);
+        }
+        mbar_fence_init();
+    }
+    if (MODE != GROUP_GLOBAL)
+        for (int i = threadIdx.x; i < (1 + 2 * NV) * G; i += blockDim.x)
+            hist[i] = 0u;
+    __syncthreads();
+
+    if (threadIdx.x < 32) {                       // the producer warp
+        int i = 0;
+        for (long long c = blockIdx.x; c < nchunks; c += gridDim.x, ++i) {
+            const int s = i % S;
+            if (i >= S) mbar_wait(empty + s, ((i / S) - 1) & 1);
+            const long long r0 = c * R;
+            const uint32_t rows = (uint32_t)min((long long)R, p.n - r0);
+            unsigned char* st = ring + (size_t)s * SB;
+            AsyncCopy cp[NV + 2];
+            cp[0] = {st, p.gid + r0, rows * 4};
+#pragma unroll
+            for (int k = 0; k < NV; ++k)
+                cp[1 + k] = {st + R * 4 * (1 + k), p.vals[k] + r0, rows * 4};
+            cp[NV + 1] = {st + R * 4 * (1 + NV), p.mask + r0 / 32, rows / 8};
+            warp_fill(cp, full + s);
+        }
+        return;
+    }
+
+    const int t = threadIdx.x - 32;               // consumer thread
+    int i = 0, since = 0;
+    for (long long c = blockIdx.x; c < nchunks; c += gridDim.x, ++i) {
+        const int s = i % S;
+        mbar_wait(full + s, (i / S) & 1);
+        const int rows = (int)min((long long)R, p.n - c * R);
+        const unsigned char* st = ring + (size_t)s * SB;
+        int g[4] = {0, 0, 0, 0};
+        uint32_t v[4][NV];
+        uint32_t bits = 0u;
+        if (4 * t < rows) {               // rows is a multiple of 32
+            const int4 g4 = reinterpret_cast<const int4*>(st)[t];
+            g[0] = g4.x; g[1] = g4.y; g[2] = g4.z; g[3] = g4.w;
+#pragma unroll
+            for (int k = 0; k < NV; ++k) {
+                const uint4 x = reinterpret_cast<const uint4*>(
+                    st + R * 4 * (1 + k))[t];
+                v[0][k] = x.x; v[1][k] = x.y; v[2][k] = x.z; v[3][k] = x.w;
+            }
+            const uint32_t mw = reinterpret_cast<const uint32_t*>(
+                st + R * 4 * (1 + NV))[t >> 3];
+            bits = (mw >> ((t & 7) * 4)) & 0xFu;
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+            if (((bits >> u) & 1u) && (unsigned)g[u] < (unsigned)G)
+                add_row<NV, MODE>(hist, p.out, G, g[u], v[u]);
+        // release the stage only once its words are in use: an arrive
+        // issued right after the shared loads can overtake them (the SASS
+        // puts no wait between), and the refill then races the reads
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + s);
+        if (MODE == GROUP_LIMBS && ++since == p.flush_chunks) {
+            flush<NV, MODE>(hist, p.out, G, t);
+            since = 0;
+        }
+    }
+    if (MODE != GROUP_GLOBAL) flush<NV, MODE>(hist, p.out, G, t);
+}
+
 template <int K>
-static cudaError_t launch(const GroupParams& p, cudaStream_t stream) {
-    int dev = 0, sms = 0;
-    cudaError_t err = cudaGetDevice(&dev);
+static cudaError_t launch(const GroupParams& p, int mode, int blocks,
+                          cudaStream_t stream) {
+    const size_t hist = mode == GROUP_GLOBAL
+        ? 0 : sizeof(uint32_t) * (1 + 4 * K) * (size_t)p.G;
+    const size_t smem = 16 * (size_t)p.stages
+        + (size_t)p.stages * stage_bytes<2 * K>() + hist;
+    if (smem > KNOX_SMEM_MAX) return cudaErrorInvalidValue;
+    void (*kern)(const GroupParams) =
+        mode == GROUP_GLOBAL ? group_sums_kernel<K, GROUP_GLOBAL>
+        : mode == GROUP_LIMBS ? group_sums_kernel<K, GROUP_LIMBS>
+                              : group_sums_kernel<K, GROUP_CARRY>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-    const long long per_block = (long long)KNOX_GROUP_THREADS * KNOX_GROUP_UNROLL;
-    long long blocks = (p.n + per_block - 1) / per_block;
-    const long long cap = (long long)sms * KNOX_GROUP_BLOCKS_PER_SM;
-    if (blocks > cap) blocks = cap;
-    const size_t smem = sizeof(unsigned long long) * (1 + 2 * K) * (size_t)p.G;
-    if (smem <= KNOX_GROUP_SMEM_BUDGET)
-        group_sums_kernel<K, true>
-            <<<(int)blocks, KNOX_GROUP_THREADS, smem, stream>>>(p);
-    else
-        group_sums_kernel<K, false>
-            <<<(int)blocks, KNOX_GROUP_THREADS, 0, stream>>>(p);
+    kern<<<blocks, KNOX_GROUP_THREADS, smem, stream>>>(p);
     return cudaGetLastError();
 }
 
 extern "C" {
 
 // Per-group count and sums of K = 1 (v0, v1) or K = 2 (v0..v3) u32 value
-// pairs over n rows; out is a zeroed u64[1 + 2K, G]. Returns a cudaError_t
-// value.
+// pairs over n rows; out is a zeroed u64[1 + 2K, G]. The launch geometry
+// (mode 0 GLOBAL / 1 LIMBS / 2 CARRY, ring stages, chunks between LIMBS
+// flushes, blocks) comes from ops/group_kernels.group_tile_plan. Returns a
+// cudaError_t value.
 int knox_group_sums(const void* gid, const void* mask, const void* v0,
                     const void* v1, const void* v2, const void* v3, int K,
-                    int n, int G, void* out, void* stream) {
-    if ((K != 1 && K != 2) || n < 0 || G < 0 || (n & 31))
+                    int n, int G, void* out, int mode, int stages,
+                    int flush_chunks, int blocks, void* stream) {
+    if ((K != 1 && K != 2) || n < 0 || G < 0 || (n & 31)
+        || mode < GROUP_GLOBAL || mode > GROUP_CARRY || stages < 2
+        || stages > KNOX_GROUP_MAX_STAGES || blocks < 1
+        || (mode == GROUP_LIMBS
+            && (flush_chunks < 1 || flush_chunks > KNOX_GROUP_LIMB_CHUNKS)))
         return (int)cudaErrorInvalidValue;
     if (n == 0 || G == 0) return (int)cudaSuccess;
     GroupParams p = {};
@@ -153,8 +269,11 @@ int knox_group_sums(const void* gid, const void* mask, const void* v0,
     p.out = (unsigned long long*)out;
     p.n = n;
     p.G = G;
+    p.stages = stages;
+    p.flush_chunks = flush_chunks;
     cudaStream_t s = (cudaStream_t)stream;
-    return (int)(K == 1 ? launch<1>(p, s) : launch<2>(p, s));
+    return (int)(K == 1 ? launch<1>(p, mode, blocks, s)
+                        : launch<2>(p, mode, blocks, s));
 }
 
 }  // extern "C"

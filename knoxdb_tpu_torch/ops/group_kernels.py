@@ -12,7 +12,9 @@ plain PyTorch version beside it:
 Both launch the one hand-written CUDA kernel of csrc/group_kernels.cu on a
 CUDA tensor (or raise), and run the plain version on a CPU tensor.
 `LAUNCHES` counts kernel launches and `PLAIN_CALLS` plain-version runs
-taken by a wrapper.
+taken by a wrapper. `group_tile_plan` gives the kernel's launch geometry
+(histogram mode, ring stages, rows between flushes, blocks); the wrappers
+take it from there unless a caller passes its own.
 
 The contract changed from the TPU kernels' and is the callers' own. The
 TPU kernels emit f32[B, H, L*(C+1)] per-tile sums of the values' byte
@@ -35,6 +37,8 @@ nothing. Outputs: int64[G] tensors.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 
 from . import bitset as BS
@@ -43,9 +47,25 @@ from . import words as WD
 __all__ = ["fused_group_partials", "fused_group_moments_partials",
            "fused_group_partials_torch",
            "fused_group_moments_partials_torch", "LAUNCHES", "PLAIN_CALLS",
-           "reset_counts", "MAX_ROWS"]
+           "reset_counts", "MAX_ROWS", "GroupPlan", "group_tile_plan",
+           "max_shared_groups"]
 
 MAX_ROWS = 1 << 31      # exclusive: the sums stay below 2^63 under it
+
+# csrc/group_kernels.cu: rows per ring stage, threads per block (one
+# producer warp, eight consumer warps), the most chunks between two LIMBS
+# flushes, and the shared memory of a block and of an SM
+CHUNK_ROWS = 1024
+BLOCK_THREADS = 288
+LIMB_CHUNKS = 64
+LIMB_MAX = (1 << 16) - 1
+SMEM_BLOCK = 232448
+SMEM_SM = 233472
+RING_BYTES = 65536      # the ring's share of a block's shared memory
+MAX_STAGES = 4
+BLOCKS_PER_SM = 2
+MODES = {"global": 0, "limbs": 1, "carry": 2}
+SHARED_MODE = "limbs"   # the faster 32-bit form on the H100 (PERF.md)
 
 LAUNCHES = {"fused_group_partials": 0, "fused_group_moments_partials": 0}
 PLAIN_CALLS = {"fused_group_partials": 0, "fused_group_moments_partials": 0}
@@ -55,6 +75,68 @@ def reset_counts() -> None:
     for d in (LAUNCHES, PLAIN_CALLS):
         for k in d:
             d[k] = 0
+
+
+# ------------------------------------------------------- launch geometry --
+
+@dataclass(frozen=True)
+class GroupPlan:
+    """Launch geometry of knox_group_sums. mode: "limbs" / "carry" (32-bit
+    shared-memory counters) or "global" (u64 atomics in L2, when the
+    histogram does not fit); tile_rows: the most rows a block adds into
+    its counters between two flushes."""
+    mode: str
+    stages: int
+    flush_chunks: int
+    blocks: int
+    smem: int
+    hist_bytes: int
+    tile_rows: int
+
+
+def stage_bytes(K: int) -> int:
+    """One ring stage: a chunk's gid and 2K value words, and its mask."""
+    return CHUNK_ROWS * 4 * (1 + 2 * K) + CHUNK_ROWS // 8
+
+
+def max_shared_groups(K: int) -> int:
+    """The largest G whose 32-bit counters fit beside the ring in a block's
+    shared memory: the switch from the shared forms to "global"."""
+    sb = stage_bytes(K)
+    stages = max(2, min(MAX_STAGES, RING_BYTES // sb))
+    return (SMEM_BLOCK - stages * (sb + 16)) // (4 * (1 + 4 * K))
+
+
+def group_tile_plan(n: int, G: int, K: int, sms: int = 132,
+                    mode: str | None = None,
+                    blocks: int | None = None) -> GroupPlan:
+    """The group kernel's geometry for n rows (a multiple of 32), G groups
+    and K value pairs on a card with `sms` SMs. The shared-memory forms
+    take 4(1 + 4K) bytes per group beside a ring of at most RING_BYTES;
+    G past what fits in a block runs "global". `mode` and `blocks`
+    override the choice (a measurement's variants)."""
+    sb = stage_bytes(K)
+    stages = max(2, min(MAX_STAGES, RING_BYTES // sb))
+    ring = stages * (sb + 16)
+    hist = 4 * (1 + 4 * K) * G
+    fits = ring + hist <= SMEM_BLOCK
+    if mode is None:
+        mode = SHARED_MODE if fits else "global"
+    if mode not in MODES:
+        raise ValueError(f"group_tile_plan: mode {mode!r}")
+    if mode != "global" and not fits:
+        raise ValueError(f"group_tile_plan: G = {G} does not fit shared "
+                         f"memory in mode {mode}")
+    if mode == "global":
+        hist = 0
+    smem = ring + hist
+    nchunks = max(1, -(-n // CHUNK_ROWS))
+    if blocks is None:
+        per_sm = max(1, min(BLOCKS_PER_SM, SMEM_SM // (smem + 1024)))
+        blocks = min(nchunks, sms * per_sm)
+    flush = LIMB_CHUNKS if mode == "limbs" else nchunks
+    return GroupPlan(mode, stages, flush, max(1, blocks), smem, hist,
+                     min(flush * CHUNK_ROWS, n))
 
 
 # ---------------------------------------------------------- plain versions --
@@ -95,7 +177,7 @@ def _check(t, name: str, shape, device):
         raise ValueError(f"{name}: not contiguous")
 
 
-def _group_sums(name: str, gid, mask_words, vals, G: int):
+def _group_sums(name: str, gid, mask_words, vals, G: int, plan=None):
     if not isinstance(gid, torch.Tensor) or gid.dim() != 2 \
             or gid.shape[1] % 32:
         raise ValueError(f"{name}: gid must be [P, N] with N % 32 == 0")
@@ -117,13 +199,18 @@ def _group_sums(name: str, gid, mask_words, vals, G: int):
         raise ValueError(f"{name}: unsupported device {dev}")
     from .cuda_build import load
     lib = load()
+    K = len(vals) // 2
+    if plan is None:
+        plan = group_tile_plan(P * N, G, K, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
     out = torch.zeros((1 + len(vals), G), dtype=torch.int64, device=dev)
     ptrs = [v.data_ptr() for v in vals] + [None] * (4 - len(vals))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.knox_group_sums(gid.data_ptr(), mask_words.data_ptr(),
-                                  *ptrs, len(vals) // 2, P * N, G,
-                                  out.data_ptr(), stream)
+                                  *ptrs, K, P * N, G, out.data_ptr(),
+                                  MODES[plan.mode], plan.stages,
+                                  plan.flush_chunks, plan.blocks, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
                            f"{err}")
@@ -131,16 +218,17 @@ def _group_sums(name: str, gid, mask_words, vals, G: int):
     return tuple(out.unbind(0))
 
 
-def fused_group_partials(gid, mask_words, vlo, vhi, G: int):
+def fused_group_partials(gid, mask_words, vlo, vhi, G: int, plan=None):
     """Per-group (counts, Σvlo, Σvhi), each int64[G]: the group sum is
-    Σvlo + Σvhi * 2^32."""
+    Σvlo + Σvhi * 2^32. `plan` (a GroupPlan) overrides the kernel's
+    launch geometry."""
     return _group_sums("fused_group_partials", gid, mask_words, (vlo, vhi),
-                       G)
+                       G, plan)
 
 
 def fused_group_moments_partials(gid, mask_words, rlo, rhi, qlo, qhi,
-                                 G: int):
+                                 G: int, plan=None):
     """Per-group (counts, Σrlo, Σrhi, Σqlo, Σqhi), each int64[G], from one
     pass over the rows."""
     return _group_sums("fused_group_moments_partials", gid, mask_words,
-                       (rlo, rhi, qlo, qhi), G)
+                       (rlo, rhi, qlo, qhi), G, plan)

@@ -196,6 +196,66 @@ def test_wrapper_rejects_bad_operands(cuda):
                           leaf_field, mask_in, fwidths, specs)
 
 
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+@pytest.mark.parametrize("P,W", [(1, 33), (3, 33), (3, 2048), (5, 40)])
+def test_tree_kernel_cluster_sizes(cuda, cluster, P, W):
+    """The cluster kernel at every cluster size against the plain version:
+    entry()'s shape (two re-read fields, resident where they fit, else
+    streamed), a mask-only streamed field, W % 4 != 0 (copies by hand),
+    one pack, and CTAs without words (W = 33 at 8 CTAs)."""
+    rng = np.random.default_rng(cluster * 100 + P * 10 + W)
+    widths = (16, 41, 20)
+    specs = ((1, True, False), (0, False, True), (0, True, False))
+    args = _dev(random_tree_case(rng, widths, P, W, 3, specs), cuda)
+    plan = SK.tree_cluster_plan(P, W, widths, SK.field_reads(
+        3, widths, args[2], specs), cluster=cluster)
+    got = SK.fused_tree_agg(*args, plan=plan)
+    want = SK.fused_tree_agg_torch(*args)
+    torch.cuda.synchronize()
+    _same(got[0], want[0], "mask")
+    _same(got[1], want[1], "cnt")
+    for d, rd in zip(got[2], want[2]):
+        for k in d:
+            _same(d[k], rd[k], k)
+    got1 = SK.fused_range_sum_masked(args[0][0], *args[1][0], args[3], 16,
+                                     plan=SK.tree_cluster_plan(
+                                         P, W, (16,), (2,), cluster=cluster))
+    for g, w in zip(got1, SK.fused_range_sum_masked_torch(
+            args[0][0], *args[1][0], args[3], 16)):
+        _same(g, w, "fused_range_sum_masked")
+
+
+@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
+def test_tree_kernel_match_in_last_slice(cuda, cluster):
+    """Rows pass only in each pack's last slice: the other CTAs' min and
+    max are the identities and the cluster's combine must keep the last
+    slice's; one pack has no row at all."""
+    rng = np.random.default_rng(cluster)
+    P, W, widths = 4, 2048, (16, 41)
+    specs = ((0, True, True), (1, True, True))
+    case = list(random_tree_case(rng, widths, P, W, 2, specs))
+    case[0] = [np.ascontiguousarray(p) for p in case[0]]
+    mask_in = np.zeros((P, W), np.uint32)
+    mask_in[:-1, -3:] = rng.integers(1, 1 << 32, (P - 1, 3), dtype=np.uint64)
+    case[3] = mask_in
+    for op in case[1]:
+        op[2][:] = 0                          # no degenerate-pack flags
+        op[2][:, 4] = 0xFFFFFFFF              # hi above every pack
+        op[2][:, 1] = 0xFFFFFFFF              # lo at or below every pack
+    args = _dev(tuple(case), cuda)
+    plan = SK.tree_cluster_plan(P, W, widths, SK.field_reads(
+        2, widths, args[2], specs), cluster=cluster)
+    got = SK.fused_tree_agg(*args, plan=plan)
+    want = SK.fused_tree_agg_torch(*args)
+    torch.cuda.synchronize()
+    assert int(want[1][:-1].min()) > 0 and int(want[1][-1]) == 0
+    _same(got[0], want[0], "mask")
+    _same(got[1], want[1], "cnt")
+    for d, rd in zip(got[2], want[2]):
+        for k in d:
+            _same(d[k], rd[k], k)
+
+
 def _group_case(rng, P, N, G, K, device):
     """Random group-kernel operands: gids in [-2, G + 3), a 70% mask,
     carry-stress values (all-ones words) and, for K = 2, square halves of
@@ -236,6 +296,65 @@ def test_group_kernels_equal_plain(cuda, G, K):
     assert len(got) == len(want) == 1 + 2 * K
     for g, w in zip(got, want):
         _same(g, w, name)
+
+
+def _group_fns(K):
+    return ((GK.fused_group_partials, GK.fused_group_partials_torch)
+            if K == 1 else (GK.fused_group_moments_partials,
+                            GK.fused_group_moments_partials_torch))
+
+
+@pytest.mark.parametrize("mode", ["limbs", "carry", "global"])
+@pytest.mark.parametrize("G", [1, 200])
+@pytest.mark.parametrize("K", [1, 2])
+def test_group_kernel_modes(cuda, mode, G, K):
+    """Each histogram form of the kernel against the plain version, with a
+    ragged last chunk (n % 1024 = 512)."""
+    rng = np.random.default_rng(G * 7 + K)
+    args = _group_case(rng, 3, 2560, G, K, cuda)
+    kern, plain = _group_fns(K)
+    n = args[0].numel()
+    got = kern(*args, G, plan=GK.group_tile_plan(n, G, K, mode=mode))
+    torch.cuda.synchronize()
+    for g, w in zip(got, plain(*args, G)):
+        _same(g, w, mode)
+
+
+@pytest.mark.parametrize("K", [1, 2])
+def test_group_kernel_at_shared_threshold(cuda, K):
+    """G at the largest shared histogram and one past it (global)."""
+    gmax = GK.max_shared_groups(K)
+    kern, plain = _group_fns(K)
+    for G, mode in ((gmax, GK.SHARED_MODE), (gmax + 1, "global")):
+        args = _group_case(np.random.default_rng(G), 2, 32768, G, K, cuda)
+        plan = GK.group_tile_plan(args[0].numel(), G, K)
+        assert plan.mode == mode
+        got = kern(*args, G)
+        torch.cuda.synchronize()
+        for g, w in zip(got, plain(*args, G)):
+            _same(g, w, f"G={G}")
+
+
+@pytest.mark.parametrize("mode", ["limbs", "carry"])
+@pytest.mark.parametrize("K", [1, 2])
+def test_group_kernel_overflow_bound(cuda, mode, K):
+    """One block, one group, every row passing with all-ones value words:
+    every LIMBS tile reaches 65,536 * 65,535, and CARRY wraps on every
+    row."""
+    n = 4 * 65536
+    gid = torch.zeros((4, n // 4), dtype=torch.int32, device=cuda)
+    ones = torch.full((4, n // 4), -1, dtype=torch.int32, device=cuda)
+    mask = torch.full((4, n // 128), -1, dtype=torch.int32, device=cuda)
+    args = [gid, mask] + [ones] * (2 * K)
+    kern, plain = _group_fns(K)
+    plan = GK.group_tile_plan(n, 1, K, mode=mode, blocks=1)
+    assert plan.tile_rows * GK.LIMB_MAX < 1 << 32 or mode == "carry"
+    got = kern(*args, 1, plan=plan)
+    torch.cuda.synchronize()
+    want = plain(*args, 1)
+    assert int(want[1][0]) == n * 0xFFFFFFFF
+    for g, w in zip(got, want):
+        _same(g, w, mode)
 
 
 def test_group_wrapper_rejects_bad_operands(cuda):

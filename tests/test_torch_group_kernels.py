@@ -172,3 +172,96 @@ def test_wrappers_check_operands():
     with pytest.raises(ValueError):
         GK.fused_group_partials(g.to("meta"), m.to("meta"), g.to("meta"),
                                 g.to("meta"), 4)
+
+
+# ------------------------------------------------- the kernel's launch plan --
+
+def _groups(G, K):
+    gmax = GK.max_shared_groups(K)
+    return {"max": gmax, "max+1": gmax + 1}.get(G, G)
+
+
+@pytest.mark.parametrize("K", [1, 2])
+@pytest.mark.parametrize("n", [32, 1024 * 63 + 32, 1 << 24, (1 << 31) - 32])
+@pytest.mark.parametrize("G", [1, 1000, "max", "max+1", 65536])
+def test_group_tile_plan_invariants(G, n, K):
+    """No 32-bit counter can overflow, shared memory stays within a
+    block's 232,448 bytes, and the shared / global switch falls at
+    max_shared_groups(K)."""
+    G = _groups(G, K)
+    plan = GK.group_tile_plan(n, G, K)
+    shared = G <= GK.max_shared_groups(K)
+    assert plan.mode == (GK.SHARED_MODE if shared else "global")
+    assert plan.smem <= GK.SMEM_BLOCK
+    assert plan.smem == plan.stages * (GK.stage_bytes(K) + 16) \
+        + plan.hist_bytes
+    assert plan.hist_bytes == (4 * (1 + 4 * K) * G if shared else 0)
+    assert 2 <= plan.stages <= GK.MAX_STAGES
+    nchunks = -(-n // GK.CHUNK_ROWS)
+    assert 1 <= plan.blocks <= min(nchunks, 132 * GK.BLOCKS_PER_SM)
+    if plan.mode == "limbs":
+        # a counter adds at most tile_rows limbs of at most 2^16 - 1
+        assert plan.flush_chunks <= GK.LIMB_CHUNKS
+        assert plan.flush_chunks * GK.CHUNK_ROWS * GK.LIMB_MAX < 1 << 32
+        assert plan.tile_rows * GK.LIMB_MAX < 1 << 32
+    # counts (and CARRY's wrap counts) of one block stay below 2^32
+    assert plan.tile_rows <= n < 1 << 32
+    for mode in ("limbs", "carry"):
+        if shared:
+            assert GK.group_tile_plan(n, G, K, mode=mode).mode == mode
+        else:
+            with pytest.raises(ValueError, match="does not fit"):
+                GK.group_tile_plan(n, G, K, mode=mode)
+
+
+def test_group_tile_plan_overrides():
+    """A measurement's variants: a forced mode and block count."""
+    plan = GK.group_tile_plan(1 << 20, 1, 1, mode="carry", blocks=1)
+    assert (plan.mode, plan.blocks, plan.tile_rows) == ("carry", 1, 1 << 20)
+    plan = GK.group_tile_plan(1 << 20, 1, 2, mode="limbs", blocks=1)
+    assert plan.tile_rows == GK.LIMB_CHUNKS * GK.CHUNK_ROWS == 1 << 16
+    assert GK.group_tile_plan(1 << 20, 10, 1, mode="global").hist_bytes == 0
+    with pytest.raises(ValueError, match="mode"):
+        GK.group_tile_plan(1 << 20, 10, 1, mode="f32")
+
+
+def test_group_partials_one_group_vs_pallas():
+    """G = 1, every row of a few packs in one group (the most contended
+    counter), against the reference's _group_pallas in interpret mode."""
+    rng = np.random.default_rng(1)
+    gids, vals, maskb, words = _case(rng, 1, 3, 4096, lo=0, hi_pad=0,
+                                     p_mask=0.95)
+    rc, chunks, _mn, _mx = RGB._group_pallas(
+        jnp.asarray(gids), jnp.asarray(words), jnp.asarray(vals), 1)
+    c, sums = _port(gids, vals, words, 1)
+    np.testing.assert_array_equal(c, np.asarray(rc))
+    assert list(sums) == list(RGB.mxu_chunk_sums(chunks))
+    want_c, want_s = _oracle(gids, vals, maskb, 1)
+    np.testing.assert_array_equal(c, want_c)
+    assert list(sums) == list(want_s)
+
+
+@pytest.mark.parametrize("K", [1, 2])
+@pytest.mark.parametrize("G", ["max", "max+1"])
+def test_group_sums_at_shared_threshold(G, K):
+    """G on both sides of the shared / global switch, against a numpy
+    oracle (the reference's multi-pass route at these G would rerun its
+    interpret-mode kernel per 8192 groups)."""
+    G = _groups(G, K)
+    rng = np.random.default_rng(G + K)
+    P, N = 2, 8192
+    gids, vals, maskb, words = _case(rng, G, P, N)
+    lo, hi = WD.split_u64(vals)
+    parts = [WD.to_words(lo, "cpu"), WD.to_words(hi, "cpu")]
+    if K == 2:
+        parts += [WD.to_words(hi, "cpu"), WD.to_words(lo, "cpu")]
+    fn = GK.fused_group_partials if K == 1 \
+        else GK.fused_group_moments_partials
+    out = fn(torch.from_numpy(gids), WD.to_words(words, "cpu"), *parts, G)
+    want_c, want_s = _oracle(gids, vals, maskb, G)
+    np.testing.assert_array_equal(out[0].numpy(), want_c)
+    assert list(TGB.halves_sum(out[1], out[2])) == list(want_s)
+    if K == 2:
+        swapped = (vals >> np.uint64(32)) | (vals << np.uint64(32))
+        assert list(TGB.halves_sum(out[3], out[4])) == \
+            list(_oracle(gids, swapped, maskb, G)[1])
