@@ -1,13 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of knoxdb_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--ab DIR]
-
-With --ab, DIR holds a baseline's csrc/scan_kernels.cu and
-csrc/group_kernels.cu, from before these kernels took launch-geometry
-arguments (say `git archive` of an earlier commit): phase 2 builds them
-under another library name and phase 5 times them against the
-redesigned kernels #1-#4, in turns, on the same operands.
+    python3 chip_smoke.py
 
 Phases, each printed on its own line; any failure raises and the script
 exits nonzero:
@@ -16,14 +10,13 @@ exits nonzero:
      sm_90a), with the seconds it took and ptxas' register report;
   3. kernel = plain: each kernel against its plain PyTorch version on the
      card, bit for bit. Scan kernels: random planes at widths 0-64, P = 64,
-     W = 2048, 1-3 leaves, sum and min/max specs and an empty pack; the
-     staged body at clusters of 1, 2, 4 and 8 CTAs with P = 1 and 3,
-     W = 33 and 2048, and rows passing only in a pack's last slice. Group
-     kernels: 4,194,304 rows at G = 1, 200, 1000, 8192 and 65,536, with
-     invalid gids, 70% masks and all-ones values; the moments kernel with
-     the squares of values up to 2^32 - 1; the LIMBS, CARRY and GLOBAL
-     forms at G = 1 and 200, G at the shared threshold and one past it,
-     and all-ones words on every row of one block's 65,536-row tiles.
+     W = 2048, 1-3 leaves, sum and min/max specs and an empty pack; P = 1
+     and 3 with W = 33 and 2048, and rows passing only in a pack's last
+     words. Group kernels: 4,194,304 rows at G = 1, 200, 1000, 8192 and
+     65,536 (LIMBS and GLOBAL), with invalid gids, 70% masks and all-ones
+     values; the moments kernel with the squares of values up to
+     2^32 - 1; G at the shared threshold and one past it, and all-ones
+     words on every row of every block's 65,536-row tile.
      The tile sort (kernel #8): 4 tiles of keys in [0, 8) and 32 tiles
      of full-range u32 keys, ntpose 0 and 8. The split scan kernels (range_mask_count,
      masked_plane_popcounts): widths 0, 1, 16, 33 and 64 at 37 packs, every
@@ -105,11 +98,10 @@ exits nonzero:
      word operations over the published float32 rate; kernel #8 also its
      shared-memory traffic) and, where one PyTorch call computes the same
      function, that call's time. Kernels #1-#4 at the operands of config
-     #1, entry(), config #2's source AND, config #3, #3c and #6: the
-     redesigned body against the baseline (with --ab) in turns, warm and
-     L2-flushed, each equal bit for bit, with each cluster size (scan) or
-     counter form and blocks per SM (group), the plans' choices, ptxas'
-     registers, shared memory and spills, and the SASS atomics of both.
+     #1, entry(), config #2's source AND, config #3, #3c and #6, warm and
+     (scan) L2-flushed, with the group kernel's plan (form, ring stages,
+     blocks, tile rows), ptxas' registers, shared memory and spills, and
+     the SASS atomics of the scan and group libraries.
 
 The last three lines are the kernels' JSON record, the card, and
 {"ok": true, "device": {...}}. Needs a CUDA device and the repository.
@@ -239,43 +231,37 @@ def phase_kernels_vs_plain(dev):
                                      f"err {err}, empty-pack count "
                                      f"{int(got[1][-1])}")
             ncase += 1
-    # the cluster kernel's edges at every cluster size: one and three
-    # packs, W % 4 != 0 (copies by hand), CTAs without words, resident and
-    # streamed fields, and rows that pass only in a pack's last slice
+    # edge shapes: one and three packs, W % 4 != 0, and rows that pass
+    # only in a pack's last words
     nedge = 0
     widths, specs = (16, 41, 20), ((1, True, False), (0, False, True),
                                    (2, True, False))
     for P_, W_, last_only in ((1, 33, False), (3, 33, False),
                               (1, 2048, False), (3, 2048, False),
                               (4, 2048, True)):
-        for c in SK.TREE_CLUSTERS:
-            planes, leaf_ops, leaf_field, mask_in, fw, sp = random_tree_case(
-                rng, widths, P_, W_, 3, specs)
-            if last_only:
-                mask_in[:, :-3] = 0
-            args = ([WD.to_words(p, dev) for p in planes],
-                    [tuple(WD.to_words(a, dev) for a in op)
-                     for op in leaf_ops], leaf_field,
-                    WD.to_words(mask_in, dev), fw, sp)
-            plan = SK.tree_cluster_plan(P_, W_, fw, SK.field_reads(
-                3, fw, leaf_field, sp), cluster=c)
-            err = _max_err(SK.fused_tree_agg(*args, plan=plan),
-                           SK.fused_tree_agg_torch(*args))
-            one = (args[0][0], *args[1][0], args[3], 16)
-            err = max(err, _max_err(
-                SK.fused_range_sum_masked(*one, plan=SK.tree_cluster_plan(
-                    P_, W_, (16,), (2,), cluster=c)),
-                SK.fused_range_sum_masked_torch(*one)))
-            if err:
-                raise AssertionError(f"cluster kernel P={P_} W={W_} "
-                                     f"cluster={c}: max abs err {err}")
-            nedge += 2
+        planes, leaf_ops, leaf_field, mask_in, fw, sp = random_tree_case(
+            rng, widths, P_, W_, 3, specs)
+        if last_only:
+            mask_in[:, :-3] = 0
+        args = ([WD.to_words(p, dev) for p in planes],
+                [tuple(WD.to_words(a, dev) for a in op)
+                 for op in leaf_ops], leaf_field,
+                WD.to_words(mask_in, dev), fw, sp)
+        err = _max_err(SK.fused_tree_agg(*args),
+                       SK.fused_tree_agg_torch(*args))
+        one = (args[0][0], *args[1][0], args[3], 16)
+        err = max(err, _max_err(SK.fused_range_sum_masked(*one),
+                                SK.fused_range_sum_masked_torch(*one)))
+        if err:
+            raise AssertionError(f"fused kernel P={P_} W={W_}: max abs err "
+                                 f"{err}")
+        nedge += 2
     torch.cuda.synchronize()
     print(f"phase 3 kernel=plain: {ncase} random cases bit-identical "
           f"(P={P}, W={W}, widths 0-64, 1-3 leaves, sum and min/max specs, "
-          f"an empty pack); {nedge} cluster-edge cases bit-identical "
-          f"(clusters 1, 2, 4, 8 at P = 1, 3 with W = 33 and 2048, and "
-          f"rows passing only in the last slice)")
+          f"an empty pack); {nedge} edge cases bit-identical (P = 1, 3 "
+          f"with W = 33 and 2048, and rows passing only in a pack's last "
+          f"words)")
 
 
 def phase_split_kernels_vs_plain(dev):
@@ -369,26 +355,16 @@ def phase_group_kernels_vs_plain(dev):
         if err:
             raise AssertionError(f"group kernels at G={G}: max abs err {err}")
         ncase += 2
-        if G in (1, 200):              # every histogram form
-            for mode in ("limbs", "carry", "global"):
-                for K, fn, ref, a in (
-                        (1, GK.fused_group_partials,
-                         GK.fused_group_partials_torch, (vlo, vhi)),
-                        (2, GK.fused_group_moments_partials,
-                         GK.fused_group_moments_partials_torch,
-                         (vlo, zero, *q))):
-                    plan = GK.group_tile_plan(P * N, G, K, mode=mode)
-                    err = _max_err(fn(gid, words, *a, G, plan=plan),
-                                   ref(gid, words, *a, G))
-                    if err:
-                        raise AssertionError(f"group kernel {mode} K={K} "
-                                             f"G={G}: {err}")
-                    ncase += 1
-    # the shared / global switch, and the counters' bound: one block, one
-    # group, all-ones words on every row of every 65,536-row tile
-    nrows = 4 * PACK_SIZE
-    ones = torch.full((4, PACK_SIZE), -1, dtype=torch.int32, device=dev)
-    full = torch.full((4, PACK_SIZE // 32), -1, dtype=torch.int32, device=dev)
+        mode = GK.group_tile_plan(P * N, G, 1).mode
+        if mode != ("global" if G > GK.max_shared_groups(1) else "limbs"):
+            raise AssertionError(f"G={G}: plan mode {mode}")
+    # the shared / global switch, and the counters' bound: one group and
+    # all-ones words on every row of every block's 65,536-row tile
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    nrows = sms * GK.BLOCKS_PER_SM * GK.LIMB_CHUNKS * GK.CHUNK_ROWS
+    ones = torch.full((4, nrows // 4), -1, dtype=torch.int32, device=dev)
+    full = torch.full((4, nrows // 128), -1, dtype=torch.int32, device=dev)
+    g0 = torch.zeros((4, nrows // 4), dtype=torch.int32, device=dev)
     for K, fn, ref in ((1, GK.fused_group_partials,
                         GK.fused_group_partials_torch),
                        (2, GK.fused_group_moments_partials,
@@ -400,28 +376,29 @@ def phase_group_kernels_vs_plain(dev):
             a = [WD.to_words(rng.integers(0, 1 << 32, (P, N), dtype=np.uint64)
                              .astype(np.uint32), dev) for _ in range(2 * K)]
             mode = GK.group_tile_plan(P * N, G, K).mode
-            if mode != (GK.SHARED_MODE if G == gmax else "global"):
+            if mode != ("limbs" if G == gmax else "global"):
                 raise AssertionError(f"K={K} G={G}: plan mode {mode}")
             err = _max_err(fn(gid, words, *a, G), ref(gid, words, *a, G))
             if err:
                 raise AssertionError(f"group kernel K={K} G={G}: {err}")
             ncase += 1
-        g0 = torch.zeros((4, PACK_SIZE), dtype=torch.int32, device=dev)
-        for mode in ("limbs", "carry"):
-            plan = GK.group_tile_plan(nrows, 1, K, mode=mode, blocks=1)
-            got = fn(g0, full, *[ones] * (2 * K), 1, plan=plan)
-            want = ref(g0, full, *[ones] * (2 * K), 1)
-            if _max_err(got, want) or int(want[1][0]) != nrows * 0xFFFFFFFF:
-                raise AssertionError(f"group kernel {mode} K={K}: the "
-                                     f"all-ones tile differs")
-            ncase += 1
+        plan = GK.group_tile_plan(nrows, 1, K, sms)
+        if plan.mode != "limbs" or plan.blocks * plan.tile_rows != nrows:
+            raise AssertionError(f"all-ones tiles: plan {plan}")
+        got = fn(g0, full, *[ones] * (2 * K), 1)
+        want = ref(g0, full, *[ones] * (2 * K), 1)
+        if _max_err(got, want) or int(want[1][0]) != nrows * 0xFFFFFFFF:
+            raise AssertionError(f"group kernel K={K}: the all-ones tiles "
+                                 f"differ")
+        ncase += 1
+    del ones, full, g0
     torch.cuda.synchronize()
     print(f"phase 3 group kernel=plain: {ncase} cases bit-identical "
           f"({P * N} rows, G = 1, 200, 1000, 8192, 65536; gids in [-2, G+3), "
           f"70% masks, all-ones values, squares of values up to 2^32 - 1; "
-          f"LIMBS, CARRY and GLOBAL at G = 1 and 200; G at the shared "
-          f"threshold and one past it; all-ones words on every row of one "
-          f"block's 65,536-row tiles, {nrows} rows, G = 1)")
+          f"G at the shared threshold and one past it; all-ones words on "
+          f"every row of every block's 65,536-row tile, {nrows} rows, "
+          f"G = 1)")
 
 
 def phase_chunk_kernel_vs_plain(dev):
@@ -2072,119 +2049,7 @@ def time_topk(sc4, tree4):
     return out
 
 
-# ------------------ the redesigned kernels #1-#4 against a baseline build ---
-
-# The baseline entry points' ctypes signatures (before the launch-geometry
-# arguments): a build of the baseline sources binds them.
-_BASE_SIGNATURES = {
-    "knox_fused_tree_agg": "PP IP I PP PP PP IP I IP PP PP I P P P I I P",
-    "knox_fused_range_sum_masked": "P I L L P P P P P P P I I P",
-    "knox_group_sums": "P P P P P P I I I P P",
-}
-
-
-def _build_base(src_dir):
-    """Builds the baseline scan and group kernel sources found in src_dir
-    into the git-ignored knoxdb_tpu_torch/_build/base/ (one nvcc each, started
-    together) and binds their entry points. Returns (name -> function,
-    library paths)."""
-    import ctypes
-    import os
-    from pathlib import Path
-    from types import SimpleNamespace
-    from knoxdb_tpu_torch.ops import cuda_build
-
-    out = cuda_build.BUILD_DIR / "base"
-    out.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    for stem in ("scan_kernels", "group_kernels"):
-        so = out / f"libbase_{stem}.so"
-        cmd = [cuda_build._nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(so),
-               str(Path(src_dir) / f"{stem}.cu")]
-        jobs.append((so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                          stderr=subprocess.STDOUT,
-                                          text=True)))
-    logs = []
-    for so, proc in jobs:
-        log, _ = proc.communicate()
-        if proc.returncode:
-            raise RuntimeError(f"baseline build of {so.name} failed:\n{log}")
-        logs.append(log)
-    types = {"P": ctypes.c_void_p, "PP": ctypes.POINTER(ctypes.c_void_p),
-             "I": ctypes.c_int, "IP": ctypes.POINTER(ctypes.c_int),
-             "L": ctypes.c_longlong}
-    lib = SimpleNamespace()
-    for so, _p in jobs:
-        cdll = ctypes.CDLL(os.fspath(so))
-        for name, sig in _BASE_SIGNATURES.items():
-            fn = getattr(cdll, name, None)
-            if fn is None:
-                continue
-            fn.argtypes = [types[t] for t in sig.split()]
-            fn.restype = ctypes.c_int
-            setattr(lib, name, fn)
-    return lib, [str(so) for so, _p in jobs], "\n".join(logs)
-
-
-def _base_call(lib, kname, args):
-    """The baseline body of kernel kname on a wrapper's operands, with the
-    outputs its wrapper allocated."""
-    import torch
-    from knoxdb_tpu_torch.ops import scan_kernels as SK
-    stream = torch.cuda.current_stream().cuda_stream
-    if kname == "fused_range_sum_masked":
-        planes, lo_b, hi_b, flags, mask_in, width = args
-        P, W = mask_in.shape
-        dev = mask_in.device
-        mask = torch.empty((P, W), dtype=torch.int32, device=dev)
-        pcnt = torch.empty((P, max(width, 1)), dtype=torch.int32, device=dev)
-        cnt = torch.empty((P,), dtype=torch.int32, device=dev)
-        err = lib.knox_fused_range_sum_masked(
-            planes.data_ptr(), width, planes.stride(0), planes.stride(1),
-            lo_b.data_ptr(), hi_b.data_ptr(), flags.data_ptr(),
-            mask_in.data_ptr(), mask.data_ptr(), pcnt.data_ptr(),
-            cnt.data_ptr(), P, W, stream)
-        out = (mask, pcnt, cnt)
-    elif kname == "fused_tree_agg":
-        planes_list, leaf_ops, leaf_field, mask_in, fwidths, specs = args
-        P, W = mask_in.shape
-        dev = mask_in.device
-        mask = torch.empty((P, W), dtype=torch.int32, device=dev)
-        cnt = torch.empty((P,), dtype=torch.int32, device=dev)
-        parts, pcnts, mnmxs = [], [], []
-        for slot, want_sum, want_mm in specs:
-            d = {}
-            if want_sum:
-                d["pcnt"] = torch.empty((P, max(fwidths[slot], 1)),
-                                        dtype=torch.int32, device=dev)
-            if want_mm:
-                d["mnmx"] = torch.empty((P, 8), dtype=torch.int32, device=dev)
-            pcnts.append(d.get("pcnt"))
-            mnmxs.append(d.get("mnmx"))
-            parts.append(d)
-        err = lib.knox_fused_tree_agg(
-            SK._ptrs(planes_list), SK._ints(fwidths), len(planes_list),
-            SK._ptrs([o[0] for o in leaf_ops]),
-            SK._ptrs([o[1] for o in leaf_ops]),
-            SK._ptrs([o[2] for o in leaf_ops]), SK._ints(leaf_field),
-            len(leaf_ops), SK._ints([sl for sl, _a, _b in specs]),
-            SK._ptrs(pcnts), SK._ptrs(mnmxs), len(specs),
-            mask_in.data_ptr(), mask.data_ptr(), cnt.data_ptr(), P, W,
-            stream)
-        out = (mask, cnt, parts)
-    else:
-        gid, words, *vals, G = args
-        out = torch.zeros((1 + len(vals), G), dtype=torch.int64,
-                          device=gid.device)
-        ptrs = [v.data_ptr() for v in vals] + [None] * (4 - len(vals))
-        err = lib.knox_group_sums(gid.data_ptr(), words.data_ptr(), *ptrs,
-                                  len(vals) // 2, gid.numel(), G,
-                                  out.data_ptr(), stream)
-        out = tuple(out.unbind(0))
-    if err:
-        raise RuntimeError(f"baseline {kname}: cudaError_t {err}")
-    return out
-
+# ------------------------------------- kernels #1-#4, ptxas and SASS ---
 
 def _ptxas_of(log, names):
     """nvcc -Xptxas -v lines (registers, shared memory, spills) of the
@@ -2220,126 +2085,27 @@ def _sass_atomics(so_path):
         r"\b((?:ATOMS|ATOMG|ATOM|REDG|RED)\.[A-Z0-9_.]+)", r.stdout)))
 
 
-def _in_turns(fns, order, **kw):
-    """Median event times of each variant in fns, run in `order` (e.g.
-    old, new, new, old); each variant's time is the mean of its turns."""
-    got = {k: [] for k in fns}
-    for k in order:
-        got[k].append(_event_ms(fns[k], iters=30, **kw))
-    return {k: sum(v) / len(v) for k, v in got.items() if v}
-
-
-def time_redesign(cases, base, flush, sms):
-    """Kernels #1-#4 at the main paths' operands: the redesigned body
-    against the baseline body (when base holds its build), in turns, warm and
-    (scan kernels) with L2 flushed, each checked equal bit for bit; then
-    the geometry the plans choose among: cluster sizes 1, 2, 4 and 8 for
-    the scan kernel, the LIMBS and CARRY counters and 1-4 blocks per SM
-    for the group kernel. cases: name -> (kernel name, [operand sets])."""
+def time_kernels_1_4(cases, flush, sms):
+    """Kernels #1-#4 at the main paths' operands, warm and (scan kernels)
+    with L2 flushed, with the group kernel's plan. cases: name -> (kernel
+    name, [operand sets])."""
     from knoxdb_tpu_torch.ops import group_kernels as GK
     from knoxdb_tpu_torch.ops import scan_kernels as SK
     out = {}
     for case, (kname, sets) in cases.items():
         scan = kname in SK.LAUNCHES
         kf = getattr(SK if scan else GK, kname)
-        if scan and kname == "fused_range_sum_masked":
-            planes, width = sets[0][0], sets[0][5]
-            P, W = planes.shape[1:]
-            widths, reads = (width,), (2 if width else 0,)
-        elif scan:
-            pl, _lo, lf, mi, fw, sp = sets[0]
-            P, W = mi.shape
-            widths, reads = fw, SK.field_reads(len(pl), fw, lf, sp)
+        f = lambda i: kf(*sets[i % len(sets)])              # noqa: E731
+        r = {"kernel": kname, "warm_ms": _event_ms(f)}
+        if scan:
+            r["l2_flushed_ms"] = _event_ms(f, before=lambda i: flush.fill_(i))
         else:
             gid, G = sets[0][0], sets[0][-1]
-            K = (len(sets[0]) - 3) // 2
-            plan_for = lambda m, b=None: GK.group_tile_plan(  # noqa: E731
-                gid.numel(), G, K, sms, mode=m, blocks=b)
-        if scan:
-            plan_for = lambda c, st=SK.TREE_DEFAULT_STAGES: \
-                SK.tree_cluster_plan(P, W, widths, reads,  # noqa: E731
-                                     cluster=c, stages=st)
-        plan = plan_for(None)
-        new = lambda i: kf(*sets[i % len(sets)])          # noqa: E731
-        fns = {"new": new}
-        if base is not None:
-            err = max(_max_err(_base_call(base, kname, a), kf(*a))
-                      for a in sets)
-            if err:
-                raise AssertionError(f"{case}: the baseline and the "
-                                     f"redesign differ by {err}")
-            fns["base"] = lambda i: _base_call(base, kname,
-                                             sets[i % len(sets)])
-        if scan:     # the staged body at its own default geometry
-            ps = SK.tree_cluster_plan(P, W, widths, reads, body="staged")
-            fns["staged"] = lambda i: kf(*sets[i % len(sets)], plan=ps)
-            if _max_err(fns["staged"](0), new(0)):
-                raise AssertionError(f"{case}: the staged body differs")
-        order = ("base", "new", "new", "base") if base is not None \
-            else ("new",)
-        if scan:
-            order = order[:len(order) // 2] + ("staged", "staged") \
-                + order[len(order) // 2:]
-        r = {"kernel": kname, "plan": plan.__dict__.copy(),
-             "staged_plan": ps.__dict__.copy() if scan else None,
-             "warm_ms": _in_turns(fns, order)}
-        if scan:
-            r["l2_flushed_ms"] = _in_turns(
-                fns, order, before=lambda i: flush.fill_(i))
-            sweep = {}
-            for c in SK.TREE_CLUSTERS:
-                for st in SK.TREE_STAGES:
-                    try:
-                        pc = plan_for(c, st)
-                    except ValueError:
-                        continue
-                    # the same geometry with every field streamed
-                    streamed = SK.TreePlan("staged", c, pc.slice,
-                                           pc.threads, st, (),
-                                           4 * pc.slice * (st + 1))
-                    for label, pv in ((f"C{c} D{st}", pc),
-                                      (f"C{c} D{st} streamed", streamed)):
-                        if label.endswith("streamed") and not pc.resident:
-                            continue
-                        f = lambda i, pv=pv: kf(  # noqa: E731
-                            *sets[i % len(sets)], plan=pv)
-                        if _max_err(f(0), new(0)):
-                            raise AssertionError(f"{case}: {label} differs")
-                        sweep[label] = {
-                            "resident": list(pv.resident),
-                            "warm_ms": _event_ms(f, iters=30),
-                            "l2_flushed_ms": _event_ms(
-                                f, iters=30,
-                                before=lambda i: flush.fill_(i))}
-            r["clusters"] = sweep
-        else:
-            sweep = {}
-            modes = ("limbs", "carry", "global") if plan.mode != "global" \
-                else ("global",)
-            for m in modes:
-                for bps in (1, 2, 3, 4):
-                    pg = plan_for(m, sms * bps)
-                    if bps > 1 and (pg.smem + 1024) * bps > GK.SMEM_SM:
-                        continue
-                    f = lambda i, pg=pg: kf(*sets[i % len(sets)],  # noqa
-                                            plan=pg)
-                    got, want = f(0), new(0)
-                    if _max_err(got, want):
-                        raise AssertionError(
-                            f"{case}: {m} x{bps} differs from {plan.mode}: "
-                            + "; ".join(
-                                f"output {j}: {int((a != b).sum())} groups, "
-                                f"max diff {int((a - b).abs().max())}"
-                                for j, (a, b) in enumerate(zip(got, want)))
-                            + f"; again {_max_err(f(0), want)}")
-                    sweep[f"{m} x{bps}"] = _event_ms(f, iters=30)
-            r["modes_blocks_per_sm"] = sweep
+            r["plan"] = GK.group_tile_plan(gid.numel(), G,
+                                           (len(sets[0]) - 3) // 2,
+                                           sms).__dict__.copy()
         out[case] = r
-        print(f"phase 5 redesign {case} ({kname}): plan {r['plan']}; ms "
-              f"warm {r['warm_ms']}"
-              + (f", L2 flushed {r['l2_flushed_ms']}" if scan else "")
-              + f"; sweep {r.get('clusters', r.get('modes_blocks_per_sm'))}",
-              flush=True)
+        print(f"phase 5 kernels #1-#4 {case} ({kname}): {r}", flush=True)
     return out
 
 
@@ -2372,16 +2138,8 @@ def main() -> int:
           f"source) -> {cuda_build.build_info['library']}")
     for ln in ptxas:
         print(f"  ptxas: {ln}")
-    base = None
-    if "--ab" in sys.argv:
-        t0 = time.perf_counter()
-        base, base_libs, base_log = _build_base(
-            sys.argv[sys.argv.index("--ab") + 1])
-        print(f"phase 2 build of the baseline scan and group kernels: "
-              f"{time.perf_counter() - t0:.2f} s -> {base_libs}")
     sass = {}
-    for so in cuda_build.build_info["library"].split(", ") + (
-            base_libs if base is not None else []):
+    for so in cuda_build.build_info["library"].split(", "):
         if "group_kernels" in so or "scan_kernels" in so:
             sass[so.rsplit("/", 1)[-1]] = _sass_atomics(so)
     print(f"phase 2 SASS atomics (cuobjdump -sass): {sass}")
@@ -2700,7 +2458,7 @@ def main() -> int:
     print(f"phase 5 config4 scan(big RANGE, count, sum(big)): "
           f"{stages['config4']['big RANGE']}")
     _mark("phase 5 kernels, calls and stages")
-    # ---- phase 5: kernels #1-#4, the redesign against the baseline ----
+    # ---- phase 5: kernels #1-#4 at every main path that launches them ----
     q2s = queries2["source AND"]
     cases = {
         "config1": ("fused_range_sum_masked",
@@ -2717,31 +2475,24 @@ def main() -> int:
                     variants["fused_group_moments_partials"]),
     }
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    redesign = time_redesign(cases, base, flush, sms)
+    k14 = time_kernels_1_4(cases, flush, sms)
     kernels_ptxas = _ptxas_of(cuda_build.build_info["log"],
-                              ("fused_tree_", "group_sums_kernel"))
-    base_ptxas = "not built in this run (--ab DIR)" if base is None \
-        else _ptxas_of(base_log, ("fused_tree_kernel", "group_sums_kernel"))
-    print(f"phase 5 ptxas of the redesigned kernels: {kernels_ptxas}; of the "
-          f"baseline: {base_ptxas}")
+                              ("fused_tree_kernel", "group_sums"))
+    print(f"phase 5 ptxas of kernels #1-#4: {kernels_ptxas}")
     for r in records:
-        case = {"fused_range_sum_masked": "config1",
-                "fused_tree_agg": "entry", "fused_group_partials": "config3",
+        case = {"fused_group_partials": "config3",
                 "fused_group_moments_partials": "config6"}.get(r["name"])
-        if case is None:
-            continue
-        d = redesign[case]
-        r["plan"] = d["plan"]
-        r["base_ms"] = d["warm_ms"].get("base")
-        r["ms_in_turns"] = d["warm_ms"]["new"]
-        if "l2_flushed_ms" in d:
-            r["base_ms_l2_flushed"] = d["l2_flushed_ms"].get("base")
-        r["ptxas"] = {k: v for k, v in kernels_ptxas.items()
-                      if ("tree" in k) == (r["name"] in SK.LAUNCHES)}
-    stages["redesign"] = redesign
+        if case is not None:
+            r["plan"] = k14[case]["plan"]
+        if r["name"] in ("fused_range_sum_masked", "fused_tree_agg",
+                         "fused_group_partials",
+                         "fused_group_moments_partials"):
+            r["ptxas"] = {k: v for k, v in kernels_ptxas.items()
+                          if ("tree" in k) == (r["name"] in SK.LAUNCHES)}
+    stages["kernels_1_4"] = k14
     stages["sass_atomics"] = sass
-    stages["ptxas"] = {"redesign": kernels_ptxas, "base": base_ptxas}
-    _mark("phase 5 redesign against the baseline")
+    stages["ptxas"] = kernels_ptxas
+    _mark("phase 5 kernels #1-#4")
     probe = time_sort_probe(kops, pops, probe_ns, stream)
     rec8 = probe[-1]
     records.append({

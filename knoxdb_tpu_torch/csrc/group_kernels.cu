@@ -4,7 +4,8 @@
 // Replaces the two Pallas TPU kernels of knoxdb_tpu/ops/pallas_group.py:
 //   _kernel         (fused_group_partials)         -> knox_group_sums, K = 1
 //   _kernel_moments (fused_group_moments_partials) -> knox_group_sums, K = 2
-// Both are the one templated __global__ kernel below with K value pairs.
+// Both are the one entry below with K value pairs, which launches one of
+// two templated __global__ bodies by G (LIMBS or GLOBAL, below).
 //
 // Contract (the callers' one, not the TPU's per-tile f32 byte chunks):
 // given gid int32[n], the packed row mask u32[n/32] (bit i%32 of word i/32
@@ -20,36 +21,38 @@
 // What bounds it on the H100: bytes, 12 B/row for K = 1 (gid and two value
 // words; the mask adds 1/8 B/row) and 20 B/row for K = 2, over 3.35 TB/s.
 //
-// Design (the launch geometry comes from ops/group_kernels.group_tile_plan):
-//   - A persistent grid of at most two blocks per SM walks the rows in
-//     chunks of 1024 (chunk c goes to block c % grid). Each block is one
-//     producer warp and eight consumer warps. The producer keeps a ring of
-//     2-4 stages full: one chunk's gid, value words and mask words arrive
-//     by 1-D bulk copies (TMA) on the stage's mbarrier, so 25-60 KiB per
-//     block are in flight while the consumers add.
-//   - A consumer thread takes 4 rows of a stage as one 16-byte vector per
-//     column and the 4 mask bits from the chunk's mask word in shared
-//     memory, adds them, and then releases the stage.
-//   - Small G (the histogram fits beside the ring in a block's 227 KB):
-//     32-bit shared-memory counters, exact by construction, flushed into
-//     the u64 output with one global atomicAdd per nonzero entry:
-//       LIMBS: each value word is split into 16-bit limbs, each summed in
-//              its own u32 counter; a block flushes every flush_chunks
-//              chunks (<= 64, so <= 65,536 rows: 65,536 * 65,535 < 2^32);
-//       CARRY: each word is summed in one u32 counter, and a second u32
-//              counts the wraps the atomic's returned old value shows
-//              (old + v < old); the block flushes once.
-//     Large G: GLOBAL, each row adds to the u64 output in L2 directly (the
-//     24-40 bytes per group stay in the 50 MB L2 up to G = 65,536; the
-//     chunk kernel's multi-pass form loses 4.2x there).
+// Design (the launch geometry comes from ops/group_kernels.group_tile_plan,
+// and the form from G alone):
+//   - Small G, LIMBS (the histogram fits beside the ring in a block's
+//     227 KB): a persistent grid of at most two blocks per SM walks the
+//     rows in chunks of 1024 (chunk c goes to block c % grid). Each block
+//     is one producer warp and eight consumer warps. The producer keeps a
+//     ring of 2-4 stages full: one chunk's gid, value words and mask words
+//     arrive by 1-D bulk copies (TMA) on the stage's mbarrier, so 25-60 KiB
+//     per block are in flight while the consumers add. A consumer thread
+//     takes 4 rows of a stage as one 16-byte vector per column and the 4
+//     mask bits from the chunk's mask word in shared memory. Each value
+//     word is split into 16-bit limbs, each summed in its own u32
+//     shared-memory counter; a block flushes its counters into the u64
+//     output (one global atomicAdd per nonzero entry) every 64 chunks, so
+//     a counter takes at most 65,536 limbs: 65,536 * 65,535 < 2^32.
+//   - Large G, GLOBAL: a grid-stride walk of 4 rows per thread, at most
+//     four 256-thread blocks per SM, each passing row adding to the u64
+//     output in L2 directly (the 24-40 bytes per group stay in the 50 MB
+//     L2 up to G = 65,536; the chunk kernel's multi-pass form loses 4.2x
+//     there). Atomics in L2 bound it, not loads: the ring's vector loads
+//     ran 3.8% slower here at config #3c (PERF.md), so this form keeps the
+//     first body's loop.
 //
-// What it replaces in the earlier body (grid-stride scalar loads, 4 rows per
-// thread, 1 + 2K 64-bit shared atomicAdds per row, 528 blocks each
-// flushing 3G u64 atomics): the 64-bit shared atomics become 32-bit ones
-// (the SASS of the earlier body and the measurement are in PERF.md);
-// the scalar 4-byte loads and the per-row mask reload become bulk copies
-// and 16-byte shared-memory vectors; the flush shrinks to one per block
-// (CARRY) or per 65,536 rows (LIMBS).
+// What LIMBS replaces in the first body (grid-stride scalar loads, 1 + 2K
+// 64-bit shared atomicAdds per row, 528 blocks each flushing 3G u64
+// atomics): the 64-bit shared atomics, each a compare-and-swap loop in the
+// SASS, become native 32-bit ones; the scalar 4-byte loads and the per-row
+// mask reload become bulk copies and 16-byte shared-memory vectors; the
+// flush comes once per 65,536 rows of a block. A second 32-bit form, one
+// u32 sum per word with a wrap counter read from the atomic's returned
+// value, tied LIMBS at two blocks per SM and lost at one; commit e351633
+// holds it.
 
 #include "hopper_async.cuh"
 
@@ -59,8 +62,10 @@
 #define KNOX_GROUP_MAX_STAGES 8
 #define KNOX_GROUP_LIMB_CHUNKS 64          // 64 * 1024 * 65,535 < 2^32
 #define KNOX_SMEM_MAX 232448               // a block's dynamic shared memory
+#define KNOX_GLOBAL_THREADS 256
+#define KNOX_GLOBAL_UNROLL 4
 
-enum { GROUP_GLOBAL = 0, GROUP_LIMBS = 1, GROUP_CARRY = 2 };
+enum { GROUP_GLOBAL = 0, GROUP_LIMBS = 1 };
 
 struct GroupParams {
     const int32_t* gid;          // [n]
@@ -69,8 +74,7 @@ struct GroupParams {
     unsigned long long* out;     // [1 + 2K, G], zeroed by the caller
     long long n;
     int G;
-    int stages;                  // ring stages
-    int flush_chunks;            // chunks between flushes (LIMBS)
+    int stages;                  // ring stages (LIMBS)
 };
 
 template <int NV>
@@ -82,38 +86,24 @@ __device__ __forceinline__ void consumers_sync() {
     asm volatile("bar.sync 1, %0;" :: "n"(KNOX_GROUP_CONSUMERS) : "memory");
 }
 
-// One passing row of group g with value words v[0..NV).
-template <int NV, int MODE>
-__device__ __forceinline__ void add_row(uint32_t* hist,
-                                        unsigned long long* out, int G,
-                                        int g, const uint32_t (&v)[NV]) {
-    if (MODE == GROUP_GLOBAL) {
-        atomicAdd(out + g, 1ull);
-#pragma unroll
-        for (int k = 0; k < NV; ++k)
-            if (v[k]) atomicAdd(out + (size_t)(1 + k) * G + g,
-                                (unsigned long long)v[k]);
-        return;
-    }
+// One passing row of group g with value words v[0..NV): the count and
+// each word's two 16-bit limbs into the block's u32 counters.
+template <int NV>
+__device__ __forceinline__ void add_row(uint32_t* hist, int G, int g,
+                                        const uint32_t (&v)[NV]) {
     atomicAdd(hist + g, 1u);
 #pragma unroll
     for (int k = 0; k < NV; ++k) {
         uint32_t* a = hist + (size_t)(1 + 2 * k) * G + g;
-        uint32_t* b = a + G;
-        if (MODE == GROUP_LIMBS) {
-            const uint32_t lo = v[k] & 0xFFFFu, hi = v[k] >> 16;
-            if (lo) atomicAdd(a, lo);
-            if (hi) atomicAdd(b, hi);
-        } else if (v[k]) {
-            const uint32_t old = atomicAdd(a, v[k]);
-            if (old + v[k] < old) atomicAdd(b, 1u);
-        }
+        const uint32_t lo = v[k] & 0xFFFFu, hi = v[k] >> 16;
+        if (lo) atomicAdd(a, lo);
+        if (hi) atomicAdd(a + G, hi);
     }
 }
 
 // Adds the block's counters into the u64 output and zeroes them; every
 // consumer thread calls it.
-template <int NV, int MODE>
+template <int NV>
 __device__ __forceinline__ void flush(uint32_t* hist, unsigned long long* out,
                                       int G, int t) {
     consumers_sync();
@@ -125,9 +115,8 @@ __device__ __forceinline__ void flush(uint32_t* hist, unsigned long long* out,
 #pragma unroll
         for (int k = 0; k < NV; ++k) {
             uint32_t* a = hist + (size_t)(1 + 2 * k) * G + g;
-            const unsigned long long s = MODE == GROUP_LIMBS
-                ? (unsigned long long)a[0] + ((unsigned long long)a[G] << 16)
-                : (unsigned long long)a[0] + ((unsigned long long)a[G] << 32);
+            const unsigned long long s =
+                (unsigned long long)a[0] + ((unsigned long long)a[G] << 16);
             a[0] = 0u;
             a[G] = 0u;
             if (s) atomicAdd(out + (size_t)(1 + k) * G + g, s);
@@ -136,7 +125,8 @@ __device__ __forceinline__ void flush(uint32_t* hist, unsigned long long* out,
     consumers_sync();
 }
 
-template <int K, int MODE>
+// LIMBS: the TMA ring and the 32-bit shared counters (small G).
+template <int K>
 __global__ void __launch_bounds__(KNOX_GROUP_THREADS)
 group_sums_kernel(const GroupParams p) {
     constexpr int NV = 2 * K;
@@ -158,9 +148,8 @@ group_sums_kernel(const GroupParams p) {
         }
         mbar_fence_init();
     }
-    if (MODE != GROUP_GLOBAL)
-        for (int i = threadIdx.x; i < (1 + 2 * NV) * G; i += blockDim.x)
-            hist[i] = 0u;
+    for (int i = threadIdx.x; i < (1 + 2 * NV) * G; i += blockDim.x)
+        hist[i] = 0u;
     __syncthreads();
 
     if (threadIdx.x < 32) {                       // the producer warp
@@ -208,36 +197,76 @@ group_sums_kernel(const GroupParams p) {
 #pragma unroll
         for (int u = 0; u < 4; ++u)
             if (((bits >> u) & 1u) && (unsigned)g[u] < (unsigned)G)
-                add_row<NV, MODE>(hist, p.out, G, g[u], v[u]);
+                add_row<NV>(hist, G, g[u], v[u]);
         // release the stage only once its words are in use: an arrive
         // issued right after the shared loads can overtake them (the SASS
         // puts no wait between), and the refill then races the reads
         __syncwarp();
         if (lane == 0) mbar_arrive(empty + s);
-        if (MODE == GROUP_LIMBS && ++since == p.flush_chunks) {
-            flush<NV, MODE>(hist, p.out, G, t);
+        if (++since == KNOX_GROUP_LIMB_CHUNKS) {
+            flush<NV>(hist, p.out, G, t);
             since = 0;
         }
     }
-    if (MODE != GROUP_GLOBAL) flush<NV, MODE>(hist, p.out, G, t);
+    flush<NV>(hist, p.out, G, t);
+}
+
+// GLOBAL: a grid-stride walk, each thread loading UNROLL rows before it
+// adds any into the u64 output in L2 (large G).
+template <int K>
+__global__ void __launch_bounds__(KNOX_GLOBAL_THREADS)
+group_sums_global_kernel(const GroupParams p) {
+    const int G = p.G;
+    const long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long base = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         base < p.n; base += stride * KNOX_GLOBAL_UNROLL) {
+        int g[KNOX_GLOBAL_UNROLL];
+        bool ok[KNOX_GLOBAL_UNROLL];
+        uint32_t v[KNOX_GLOBAL_UNROLL][2 * K];
+#pragma unroll
+        for (int u = 0; u < KNOX_GLOBAL_UNROLL; ++u) {
+            const long long i = base + u * stride;
+            ok[u] = false;
+            g[u] = 0;
+            if (i < p.n) {
+                g[u] = __ldg(p.gid + i);
+                const uint32_t w = __ldg(p.mask + (i >> 5));
+                ok[u] = ((w >> (i & 31)) & 1u) && (unsigned)g[u] < (unsigned)G;
+            }
+#pragma unroll
+            for (int k = 0; k < 2 * K; ++k)
+                v[u][k] = ok[u] ? __ldg(p.vals[k] + i) : 0u;
+        }
+#pragma unroll
+        for (int u = 0; u < KNOX_GLOBAL_UNROLL; ++u) {
+            if (!ok[u]) continue;
+            atomicAdd(p.out + g[u], 1ull);
+#pragma unroll
+            for (int k = 0; k < 2 * K; ++k)
+                if (v[u][k])
+                    atomicAdd(p.out + (long long)(1 + k) * G + g[u],
+                              (unsigned long long)v[u][k]);
+        }
+    }
 }
 
 template <int K>
 static cudaError_t launch(const GroupParams& p, int mode, int blocks,
                           cudaStream_t stream) {
-    const size_t hist = mode == GROUP_GLOBAL
-        ? 0 : sizeof(uint32_t) * (1 + 4 * K) * (size_t)p.G;
+    if (mode == GROUP_GLOBAL) {
+        group_sums_global_kernel<K>
+            <<<blocks, KNOX_GLOBAL_THREADS, 0, stream>>>(p);
+        return cudaGetLastError();
+    }
     const size_t smem = 16 * (size_t)p.stages
-        + (size_t)p.stages * stage_bytes<2 * K>() + hist;
+        + (size_t)p.stages * stage_bytes<2 * K>()
+        + sizeof(uint32_t) * (1 + 4 * K) * (size_t)p.G;
     if (smem > KNOX_SMEM_MAX) return cudaErrorInvalidValue;
-    void (*kern)(const GroupParams) =
-        mode == GROUP_GLOBAL ? group_sums_kernel<K, GROUP_GLOBAL>
-        : mode == GROUP_LIMBS ? group_sums_kernel<K, GROUP_LIMBS>
-                              : group_sums_kernel<K, GROUP_CARRY>;
     cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        group_sums_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (err != cudaSuccess) return err;
-    kern<<<blocks, KNOX_GROUP_THREADS, smem, stream>>>(p);
+    group_sums_kernel<K><<<blocks, KNOX_GROUP_THREADS, smem, stream>>>(p);
     return cudaGetLastError();
 }
 
@@ -245,18 +274,16 @@ extern "C" {
 
 // Per-group count and sums of K = 1 (v0, v1) or K = 2 (v0..v3) u32 value
 // pairs over n rows; out is a zeroed u64[1 + 2K, G]. The launch geometry
-// (mode 0 GLOBAL / 1 LIMBS / 2 CARRY, ring stages, chunks between LIMBS
-// flushes, blocks) comes from ops/group_kernels.group_tile_plan. Returns a
-// cudaError_t value.
+// (mode 0 GLOBAL / 1 LIMBS, ring stages for LIMBS, blocks) comes from
+// ops/group_kernels.group_tile_plan. Returns a cudaError_t value.
 int knox_group_sums(const void* gid, const void* mask, const void* v0,
                     const void* v1, const void* v2, const void* v3, int K,
                     int n, int G, void* out, int mode, int stages,
-                    int flush_chunks, int blocks, void* stream) {
-    if ((K != 1 && K != 2) || n < 0 || G < 0 || (n & 31)
-        || mode < GROUP_GLOBAL || mode > GROUP_CARRY || stages < 2
-        || stages > KNOX_GROUP_MAX_STAGES || blocks < 1
+                    int blocks, void* stream) {
+    if ((K != 1 && K != 2) || n < 0 || G < 0 || (n & 31) || blocks < 1
+        || (mode != GROUP_GLOBAL && mode != GROUP_LIMBS)
         || (mode == GROUP_LIMBS
-            && (flush_chunks < 1 || flush_chunks > KNOX_GROUP_LIMB_CHUNKS)))
+            && (stages < 2 || stages > KNOX_GROUP_MAX_STAGES)))
         return (int)cudaErrorInvalidValue;
     if (n == 0 || G == 0) return (int)cudaSuccess;
     GroupParams p = {};
@@ -270,7 +297,6 @@ int knox_group_sums(const void* gid, const void* mask, const void* v0,
     p.n = n;
     p.G = G;
     p.stages = stages;
-    p.flush_chunks = flush_chunks;
     cudaStream_t s = (cudaStream_t)stream;
     return (int)(K == 1 ? launch<1>(p, mode, blocks, s)
                         : launch<2>(p, mode, blocks, s));

@@ -1,6 +1,6 @@
 // Asynchronous copies into shared memory on NVIDIA Hopper (sm_90a):
 // mbarriers and 1-D bulk copies (the TMA's non-tensor form), for the group
-// kernel's ring (the scan kernel takes smem_u32 for its cp.async copies).
+// kernel's ring.
 //
 // A ring stage is filled by one producer warp with warp_fill: every copy
 // whose source address and size are multiples of 16 bytes goes by a bulk

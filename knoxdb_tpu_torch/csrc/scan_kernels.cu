@@ -10,8 +10,8 @@
 // for every leaf and every sum that does not ride the fused kernel:
 //   k_ladder_only -> knox_range_mask_count       (range_mask_count_kernel)
 //   k_pcnt_only   -> knox_masked_plane_popcounts (masked_popcounts_kernel)
-// Each is its own __global__ entry with its first body (the range ladder
-// and the per-plane popcount as __device__ helpers over registers).
+// Each is its own __global__ entry; the ladder and the per-plane popcount
+// are __device__ helpers shared with the fused kernel.
 //
 // Plane layout: every entry addresses word j of plane p of pack k at
 // planes[p * plane_stride + k * pack_stride + j] (strides in words). The
@@ -20,7 +20,7 @@
 // without a copy (the probe's k_v0 / k_v6 against k_v4 / k_v7 layouts).
 // The tree entry takes contiguous plane-major fields only.
 //
-// Per pack:
+// Per pack (one block per pack, grid = P):
 //   1. every fused AND leaf runs an MSB-down range ladder over its field's
 //      planes u32[w, P, W] against per-plane select words lo/hi u32[P, w1]
 //      and five degenerate-pack flag words u32[P, 8]; the leaves are ANDed
@@ -36,55 +36,34 @@
 // 32 rows per plane, far below the card's integer rate, so the kernel is
 // a stream over the planes (16 planes x 256 packs x 8 KiB = 32 MiB per
 // query for the benchmark's 16-bit column, plus 4 MiB of masks in and
-// out), each plane word read once.
+// out). The design keeps each thread's mask words in registers between
+// the ladder and the aggregates (the TPU kept them in VMEM), loads words
+// coalesced (neighbouring threads read neighbouring words of a plane),
+// and keeps WPT words per thread in flight per plane step so that each
+// thread has several independent loads outstanding.
 //
-// The fused kernel has two bodies; ops/scan_kernels.tree_cluster_plan
-// picks one and its geometry. The first body held a third of its bound for
-// three reasons: one 256-thread block per pack with loads into registers a
-// few planes ahead, planes re-read from L2 / HBM by the aggregate passes,
-// and a min / max chain paced by two __syncthreads_or per plane.
-//   - "registers" (the default): the first body, unchanged.
-//   - "staged" (the Hopper redesign): a pack is split over a cluster of
-//     1, 2, 4 or 8 CTAs, each owning a slice of its W words, one thread per
-//     4 words. Every thread keeps 4 or 8 plane reads in flight by cp.async
-//     into shared memory; a field that two passes read stays resident
-//     there from its first read, so each plane word leaves HBM once per
-//     launch. Each thread narrows its own min / max candidates without a
-//     barrier; warp shuffles and shared atomics give the CTA's results,
-//     and CTA 0 combines the cluster's counts, popcounts, mins and maxes
-//     through distributed shared memory after a cluster barrier. A slice
-//     without candidates reads all ones and 0, the identities, so the
-//     outputs stay the registers body's bit for bit.
-// What the measurement found (PERF.md): the staged body loses at
-// the main paths' shapes. A first form staged plane rows by TMA 1-D bulk
-// copies and was slower still: one CTA's many small bulk copies complete
-// about one at a time. Residency buys nothing that L2 does not already
-// give (each thread reads only its own words, and a pack's re-read planes
-// are L2 hits) and costs occupancy: a CTA holding 57 resident planes runs
-// 4-6 warps per SM. So the registers body stays the default, and the
-// staged body, kept as the measured alternative, defaults to its fastest
-// measured geometry: one CTA per pack, residency only within two CTAs
-// per SM.
-//
-// The split kernels (5a, 5b) keep their first bodies: one block per pack,
-// WPT words per thread in registers. Their plane loops are unrolled by
-// hand, each kernel by its own factor: nvcc's own choice flips with the
-// address form. Measured on an H100, ms with the planes warm in L2 / with
-// L2 flushed, 8 words per thread: the ladder-only kernel is fastest
-// NOT unrolled, 0.0202 / 0.0328 (x4 0.0263 / 0.0458, x8 0.0320 / 0.0537;
-// 64 registers); the popcount loop x8 0.0170 / 0.0325 (none 0.0246 /
-// 0.0493; 40 registers).
+// The fused kernel reaches about a third of that bound (PERF.md). Three
+// causes were named: a 256-thread block per pack with loads into registers
+// a few planes ahead, planes re-read from L2 / HBM by the aggregate passes,
+// and a min / max chain paced by two __syncthreads_or per plane. A Hopper
+// body that answered each was built and measured against this one, in
+// turns, on the main paths' operands (commit e351633 holds its source): a
+// pack split over a thread block cluster of 1-8 CTAs, plane rows staged
+// in shared memory by cp.async (a first form by TMA 1-D bulk copies),
+// re-read fields resident there, per-thread min / max narrowing without
+// block barriers, and a distributed-shared-memory combine. It lost at
+// every main-path shape (config #1 0.0335 against 0.0224 ms, entry()
+// 0.1091 against 0.1050): the kernel is latency-bound per warp, not
+// byte-bound (warm and L2-flushed times differ little); a thread reads
+// only its own words, so staging adds a wait and a shared load per plane
+// and reuses nothing; L2 already serves the re-reads, and residency costs
+// warps per SM. This body stays.
 //
 // Integer reductions: per-thread __popc, a warp __reduce_add_sync, then
 // integer atomics in shared memory, so every result is deterministic.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include "hopper_async.cuh"
-
-namespace cg = cooperative_groups;
 
 #define KNOX_MAX_FIELDS 8
 #define KNOX_MAX_LEAVES 8
@@ -93,8 +72,6 @@ namespace cg = cooperative_groups;
 #define KNOX_NFLAGS 8
 #define KNOX_MM_COLS 8
 #define KNOX_MAX_THREADS 256
-#define KNOX_TREE_MAX_THREADS 512        // 4 words each: slices <= 2048 words
-#define KNOX_SMEM_MAX 232448
 
 // flag word columns, as written by range_consts (ops/scan_kernels.py)
 #define F_LO_LT_ALL 0
@@ -119,13 +96,21 @@ struct TreeParams {
     uint32_t* mask_out;                        // [P, W]
     int32_t* cnt;                              // [P]
     int nleaf, nspec, P, W;
-    // the fused kernel's geometry (tree_cluster_plan)
-    int slice;                                 // words per CTA, % 4 == 0
-    int nres;                                  // resident plane slots
-    int res_base[KNOX_MAX_FIELDS];             // field's first slot, or -1
-    unsigned vec_fields;                       // planes copied 16 B at a time
-    int mask_vec;                              // masks as 16-byte vectors
 };
+
+// The plane loops are unrolled by hand, each kernel by its own factor. The
+// kernels wait on loads, and a pack's one block has too few threads to
+// cover the latency unless each thread keeps the words of several planes
+// in flight; nvcc's own choice flips with the address form (it unrolled
+// the fused kernel's ladder for the plane-major form only: 0.0224 ms on the
+// benchmark's 16-plane column at 256 packs, against 0.037 ms once the pack
+// offset came from a stride). Measured on an H100, ms with the planes warm
+// in L2 / with L2 flushed, 8 words per thread: the fused kernel's ladder
+// x4 0.0218 / 0.0339 (x8 0.0215 / 0.0357, none 0.0256 / 0.0369; 107
+// registers, no spills); the ladder-only kernel is fastest NOT unrolled,
+// 0.0202 / 0.0328 (x4 0.0263 / 0.0458, x8 0.0320 / 0.0537; 64 registers);
+// the popcount loop x8 0.0170 / 0.0325 (none 0.0246 / 0.0493; 40
+// registers). At 16 words per thread the fused ladder keeps two planes.
 
 // Block-wide integer sum; every thread calls it with its value.
 __device__ __forceinline__ int block_sum(unsigned v, int* slot) {
@@ -208,17 +193,9 @@ __device__ __forceinline__ void plane_popcounts(
     __syncthreads();
 }
 
-// ---- the fused kernel (#1, #2), "registers" body (the default) ----
-//
-// One block of up to 256 threads per pack (grid = P), WPT words per thread
-// in registers from the ladder to the aggregates, the ladder's plane loop
-// unrolled x4 (x2 at 16 words), the popcount loop x8 (measured above);
-// min / max narrowing with two
-// __syncthreads_or per plane.
-
 template <int WPT>
 __global__ void __launch_bounds__(KNOX_MAX_THREADS)
-fused_tree_regs_kernel(const TreeParams prm) {
+fused_tree_kernel(const TreeParams prm) {
     const int tid = threadIdx.x;
     const int nthr = blockDim.x;
     const int W = prm.W;
@@ -325,370 +302,6 @@ fused_tree_regs_kernel(const TreeParams prm) {
 }
 
 
-// ---- the fused kernel (#1, #2), "staged" body: a cluster per pack ----
-//
-// CTA `rank` of a pack's cluster owns words [rank * slice, rank * slice +
-// nw) of every plane row and of the masks; each of its threads owns 4 of
-// those words (one 16-byte vector) and touches no other thread's data, so
-// the plane loops need no barrier. A thread reads the planes in the order
-// walk_planes gives and keeps D reads ahead of itself with cp.async: each
-// read's copy is one commit group, and `cp.async.wait_group D - 1` before
-// a read leaves the D - 1 newer copies in flight. A resident field (read
-// by two or more passes, and given room by the plan) has all its planes
-// copied at its first read into slots that stay; every other plane goes
-// through a ring of D + 1 slots (one more than the copies in flight, so a
-// copy never lands in the slot the thread has just read).
-
-struct UseCursor {
-    int i = 0, part = 0, p = 0;
-    bool spec = false, started = false;
-};
-
-// The next plane read (field f, plane p) in walk order; false at the end.
-// Leaves read MSB down; a spec reads LSB up for its sum, MSB down for its
-// min / max.
-__device__ __forceinline__ bool next_use(const TreeParams& prm, UseCursor& c,
-                                         int& f, int& p) {
-    for (;;) {
-        if (!c.spec) {
-            if (c.i >= prm.nleaf) {
-                c.spec = true;
-                c.i = 0;
-                c.started = false;
-                continue;
-            }
-            f = prm.leaf_field[c.i];
-            c.p = c.started ? c.p - 1 : prm.fwidth[f] - 1;
-            c.started = true;
-            if (c.p >= 0) { p = c.p; return true; }
-            ++c.i;
-            c.started = false;
-            continue;
-        }
-        if (c.i >= prm.nspec) return false;
-        f = prm.spec_field[c.i];
-        const int w = prm.fwidth[f];
-        if (c.part == 0 && prm.pcnt[c.i]) {
-            c.p = c.started ? c.p + 1 : 0;
-            c.started = true;
-            if (c.p < w) { p = c.p; return true; }
-        } else if (c.part == 1 && prm.mnmx[c.i]) {
-            c.p = c.started ? c.p - 1 : w - 1;
-            c.started = true;
-            if (c.p >= 0) { p = c.p; return true; }
-        }
-        c.started = false;
-        if (c.part == 0) {
-            c.part = 1;
-        } else {
-            c.part = 0;
-            ++c.i;
-        }
-    }
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t* dst, const uint32_t* src,
-                                           uint32_t src_bytes) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-                 :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t* dst, const uint32_t* src,
-                                          uint32_t src_bytes) {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
-                 :: "r"(smem_u32(dst)), "l"(src), "r"(src_bytes) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-    asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-    asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
-}
-
-// One thread's side of the plane copies and reads of its 4 words.
-template <int D>
-struct PlaneStream {
-    const TreeParams& prm;
-    uint32_t* res;              // [nres, slice]
-    uint32_t* ring;             // [D + 1, slice]
-    int pack, w0, nw, t4;
-    UseCursor ahead;            // the read whose copy goes out next
-    unsigned copied = 0u;       // resident fields whose copies are out
-    int k_out = 0, k_in = 0;    // streamed copies issued / read
-
-    // Copies this thread's words of plane p of field f into a slot row
-    // (zeros past the slice).
-    __device__ __forceinline__ void copy(uint32_t* row, int f, int p) {
-        if (t4 >= prm.slice) return;       // a warp's threads past the slice
-        const uint32_t* src = prm.planes[f] + (size_t)p * prm.plane_stride[f]
-            + (size_t)pack * prm.pack_stride[f] + w0;
-        if ((prm.vec_fields >> f) & 1u) {
-            cp_async16(row + t4, t4 < nw ? src + t4 : src,
-                       t4 < nw ? 16u : 0u);
-        } else {
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-                cp_async4(row + t4 + j, t4 + j < nw ? src + t4 + j : src,
-                          t4 + j < nw ? 4u : 0u);
-        }
-    }
-
-    // Sends out the copy of the next read in walk order, as one group
-    // (empty past the end or for a resident field already copied).
-    __device__ __forceinline__ void issue() {
-        int f, p;
-        if (next_use(prm, ahead, f, p)) {
-            const int rb = prm.res_base[f];
-            if (rb < 0) {
-                copy(ring + (size_t)(k_out % (D + 1)) * prm.slice, f, p);
-                ++k_out;
-            } else if (!((copied >> f) & 1u)) {
-                copied |= 1u << f;
-                for (int q = prm.fwidth[f] - 1; q >= 0; --q)
-                    copy(res + (size_t)(rb + q) * prm.slice, f, q);
-            }
-        }
-        cp_async_commit();
-    }
-
-    __device__ __forceinline__ void start() {
-        for (int d = 0; d < D; ++d) issue();
-    }
-
-    // The next read in walk order: plane p of field f, this thread's words.
-    __device__ __forceinline__ uint4 read(int f, int p) {
-        cp_async_wait<D - 1>();
-        const int rb = prm.res_base[f];
-        const uint32_t* row = rb >= 0
-            ? res + (size_t)(rb + p) * prm.slice
-            : ring + (size_t)(k_in++ % (D + 1)) * prm.slice;
-        const uint4 x = t4 < prm.slice
-            ? *reinterpret_cast<const uint4*>(row + t4)
-            : make_uint4(0u, 0u, 0u, 0u);
-        issue();
-        return x;
-    }
-};
-
-__device__ __forceinline__ unsigned long long warp_min64(unsigned long long v) {
-#pragma unroll
-    for (int o = 16; o; o >>= 1) {
-        const unsigned long long u = __shfl_xor_sync(0xffffffffu, v, o);
-        v = u < v ? u : v;
-    }
-    return v;
-}
-
-__device__ __forceinline__ unsigned long long warp_max64(unsigned long long v) {
-#pragma unroll
-    for (int o = 16; o; o >>= 1) {
-        const unsigned long long u = __shfl_xor_sync(0xffffffffu, v, o);
-        v = u > v ? u : v;
-    }
-    return v;
-}
-
-template <int D>
-__global__ void __launch_bounds__(KNOX_TREE_MAX_THREADS)
-fused_tree_staged_kernel(const TreeParams prm) {
-    cg::cluster_group cluster = cg::this_cluster();
-    const int C = (int)cluster.num_blocks();
-    const int rank = (int)cluster.block_rank();
-    const int pack = blockIdx.x / C;
-    const int lane = threadIdx.x & 31;
-    const int w0 = rank * prm.slice;
-    const int nw = max(0, min(prm.slice, prm.W - w0));
-    const int t4 = 4 * threadIdx.x;
-
-    __shared__ uint32_t s_lob[KNOX_MAX_LEAVES][KNOX_MAX_WIDTH];
-    __shared__ uint32_t s_hib[KNOX_MAX_LEAVES][KNOX_MAX_WIDTH];
-    __shared__ uint32_t s_fl[KNOX_MAX_LEAVES][KNOX_NFLAGS];
-    __shared__ int s_acc[KNOX_MAX_SPECS][KNOX_MAX_WIDTH];
-    __shared__ unsigned long long s_mn[KNOX_MAX_SPECS], s_mx[KNOX_MAX_SPECS];
-    __shared__ int s_cnt;
-    extern __shared__ __align__(16) uint32_t smem[];
-
-    PlaneStream<D> rd{prm, smem, smem + (size_t)prm.nres * prm.slice, pack,
-                      w0, nw, t4};
-    rd.start();                  // the first D reads' copies go out first
-
-    if (threadIdx.x == 0) s_cnt = 0;
-    for (int i = threadIdx.x; i < KNOX_MAX_SPECS * KNOX_MAX_WIDTH;
-         i += blockDim.x)
-        (&s_acc[0][0])[i] = 0;
-    for (int i = threadIdx.x; i < KNOX_MAX_SPECS; i += blockDim.x) {
-        s_mn[i] = ~0ull;
-        s_mx[i] = 0ull;
-    }
-    for (int l = 0; l < prm.nleaf; ++l) {
-        const int w1 = max(prm.fwidth[prm.leaf_field[l]], 1);
-        const size_t cb = (size_t)pack * w1;
-        for (int i = threadIdx.x; i < w1; i += blockDim.x) {
-            s_lob[l][i] = __ldg(prm.lo_bits[l] + cb + i);
-            s_hib[l][i] = __ldg(prm.hi_bits[l] + cb + i);
-        }
-        for (int i = threadIdx.x; i < KNOX_NFLAGS; i += blockDim.x)
-            s_fl[l][i] = __ldg(prm.flags[l] + (size_t)pack * KNOX_NFLAGS + i);
-    }
-    const size_t mbase = (size_t)pack * prm.W + w0 + t4;
-    uint32_t m[4];
-    if (prm.mask_vec && t4 + 4 <= nw) {
-        const uint4 x = *reinterpret_cast<const uint4*>(prm.mask_in + mbase);
-        m[0] = x.x; m[1] = x.y; m[2] = x.z; m[3] = x.w;
-    } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-            m[j] = t4 + j < nw ? prm.mask_in[mbase + j] : 0u;
-    }
-    __syncthreads();
-
-    // 1. range ladders of the fused AND leaves, MSB down
-    for (int l = 0; l < prm.nleaf; ++l) {
-        const int f = prm.leaf_field[l];
-        uint32_t lt_lo[4], eq_lo[4], lt_hi[4], eq_hi[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            lt_lo[j] = 0u; eq_lo[j] = ~0u; lt_hi[j] = 0u; eq_hi[j] = ~0u;
-        }
-        for (int p = prm.fwidth[f] - 1; p >= 0; --p) {
-            const uint4 x4 = rd.read(f, p);
-            const uint32_t x[4] = {x4.x, x4.y, x4.z, x4.w};
-            const uint32_t cl = s_lob[l][p], ch = s_hib[l][p];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                lt_lo[j] |= eq_lo[j] & ~x[j] & cl;
-                eq_lo[j] &= ~(x[j] ^ cl);
-                lt_hi[j] |= eq_hi[j] & ~x[j] & ch;
-                eq_hi[j] &= ~(x[j] ^ ch);
-            }
-        }
-        const uint32_t* fl = s_fl[l];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const uint32_t ge_lo =
-                ~((lt_lo[j] | fl[F_LO_LT_ALL]) & ~fl[F_LO_GE_NONE]);
-            uint32_t le_hi = lt_hi[j] | (eq_hi[j] & fl[F_HI_IN])
-                | fl[F_HI_LT_ALL];
-            le_hi &= ~fl[F_HI_GE_NONE];
-            m[j] &= ge_lo & le_hi;
-        }
-    }
-
-    // 2. this slice's match mask and its count
-    if (prm.mask_vec && t4 + 4 <= nw) {
-        *reinterpret_cast<uint4*>(prm.mask_out + mbase) =
-            make_uint4(m[0], m[1], m[2], m[3]);
-    } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-            if (t4 + j < nw) prm.mask_out[mbase + j] = m[j];
-    }
-    unsigned c = __popc(m[0]) + __popc(m[1]) + __popc(m[2]) + __popc(m[3]);
-    c = __reduce_add_sync(0xffffffffu, c);
-    if (lane == 0 && c) atomicAdd(&s_cnt, (int)c);
-
-    // 3. aggregate partials of the slice, per spec
-    for (int s = 0; s < prm.nspec; ++s) {
-        const int f = prm.spec_field[s];
-        const int w = prm.fwidth[f];
-        if (prm.pcnt[s]) {
-            for (int p = 0; p < w; ++p) {
-                const uint4 x = rd.read(f, p);
-                unsigned pc = __popc(x.x & m[0]) + __popc(x.y & m[1])
-                    + __popc(x.z & m[2]) + __popc(x.w & m[3]);
-                pc = __reduce_add_sync(0xffffffffu, pc);
-                if (lane == 0 && pc) atomicAdd(&s_acc[s][p], (int)pc);
-            }
-        }
-        if (prm.mnmx[s]) {
-            // each thread narrows its own candidates MSB down; a thread
-            // without any reads all ones (min) and 0 (max), the identities
-            // of the min and max over the pack
-            uint32_t cmn[4], cmx[4];
-#pragma unroll
-            for (int j = 0; j < 4; ++j) { cmn[j] = m[j]; cmx[j] = m[j]; }
-            unsigned long long mn = 0ull, mx = 0ull;
-            for (int p = w - 1; p >= 0; --p) {
-                const uint4 x4 = rd.read(f, p);
-                const uint32_t x[4] = {x4.x, x4.y, x4.z, x4.w};
-                uint32_t tmn[4], tmx[4], any_mn = 0u, any_mx = 0u;
-#pragma unroll
-                for (int j = 0; j < 4; ++j) {
-                    tmn[j] = cmn[j] & ~x[j];
-                    tmx[j] = cmx[j] & x[j];
-                    any_mn |= tmn[j];
-                    any_mx |= tmx[j];
-                }
-                if (any_mn) {
-#pragma unroll
-                    for (int j = 0; j < 4; ++j) cmn[j] = tmn[j];
-                } else {
-                    mn |= 1ull << p;
-                }
-                if (any_mx) {
-#pragma unroll
-                    for (int j = 0; j < 4; ++j) cmx[j] = tmx[j];
-                    mx |= 1ull << p;
-                }
-            }
-            mn = warp_min64(mn);
-            mx = warp_max64(mx);
-            if (lane == 0) {
-                atomicMin(&s_mn[s], mn);
-                atomicMax(&s_mx[s], mx);
-            }
-        }
-    }
-    cp_async_wait<0>();
-
-    // 4. the pack's results: CTA 0 of the cluster adds the slices' counts
-    // and popcounts and takes the min of their mins and the max of their
-    // maxes, through distributed shared memory
-    cluster.sync();
-    if (rank == 0) {
-        const int tid = threadIdx.x, nthr = blockDim.x;
-        if (tid == 0) {
-            int total = 0;
-            for (int r = 0; r < C; ++r) total += *cluster.map_shared_rank(&s_cnt, r);
-            prm.cnt[pack] = total;
-        }
-        for (int s = 0; s < prm.nspec; ++s) {
-            const int w = prm.fwidth[prm.spec_field[s]];
-            if (prm.pcnt[s]) {
-                const int w1 = max(w, 1);
-                int32_t* out = prm.pcnt[s] + (size_t)pack * w1;
-                for (int i = tid; i < w1; i += nthr) {
-                    int v = 0;
-                    if (i < w)
-                        for (int r = 0; r < C; ++r)
-                            v += cluster.map_shared_rank(&s_acc[s][0], r)[i];
-                    out[i] = v;
-                }
-            }
-            if (prm.mnmx[s] && tid == 0) {
-                unsigned long long mn = ~0ull, mx = 0ull;
-                for (int r = 0; r < C; ++r) {
-                    const unsigned long long a = *cluster.map_shared_rank(&s_mn[s], r);
-                    const unsigned long long b = *cluster.map_shared_rank(&s_mx[s], r);
-                    mn = a < mn ? a : mn;
-                    mx = b > mx ? b : mx;
-                }
-                uint32_t* out = prm.mnmx[s] + (size_t)pack * KNOX_MM_COLS;
-                out[0] = (uint32_t)mn;
-                out[1] = (uint32_t)(mn >> 32);
-                out[2] = (uint32_t)mx;
-                out[3] = (uint32_t)(mx >> 32);
-                for (int i = 4; i < KNOX_MM_COLS; ++i) out[i] = 0u;
-            }
-        }
-    }
-    cluster.sync();      // the other CTAs' shared memory stays until read
-}
-
-
 // probes/ps_variants.py k_ladder_only: one column's range ladder AND an
 // optional incoming mask (null = all rows) -> the mask and its count.
 template <int WPT>
@@ -779,94 +392,26 @@ static int block_threads(int W) {
         else return (int)cudaErrorInvalidValue;                             \
     } while (0)
 
-// The fused kernel on a cluster of `cluster` CTAs per pack, each owning
-// `slice` words; fields whose bit is set in `resident` stay in shared
-// memory, the rest stream through a ring; each thread keeps `stages`
-// (4 or 8) reads' copies in flight.
-template <int D>
-static cudaError_t launch_tree_d(const TreeParams& prm, int cluster,
-                                 size_t smem, cudaStream_t stream) {
-    cudaFuncAttributes attr;
-    cudaError_t err = cudaFuncGetAttributes(&attr, fused_tree_staged_kernel<D>);
-    if (err != cudaSuccess) return err;
-    if (attr.sharedSizeBytes + smem > KNOX_SMEM_MAX) return cudaErrorInvalidValue;
-    err = cudaFuncSetAttribute(fused_tree_staged_kernel<D>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return err;
-    cudaLaunchAttribute attrs[1];
-    attrs[0].id = cudaLaunchAttributeClusterDimension;
-    attrs[0].val.clusterDim.x = cluster;
-    attrs[0].val.clusterDim.y = 1;
-    attrs[0].val.clusterDim.z = 1;
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3((unsigned)prm.P * cluster, 1, 1);
-    cfg.blockDim = dim3((prm.slice / 4 + 31) / 32 * 32, 1, 1);
-    cfg.dynamicSmemBytes = smem;
-    cfg.stream = stream;
-    cfg.attrs = attrs;
-    cfg.numAttrs = 1;
-    err = cudaLaunchKernelEx(&cfg, fused_tree_staged_kernel<D>, prm);
-    if (err != cudaSuccess) return err;
-    return cudaGetLastError();
-}
-
-static int launch_tree(TreeParams& prm, int nfield, int body, int cluster,
-                       int slice, int stages, unsigned resident,
-                       cudaStream_t stream) {
+static int launch(const TreeParams& prm, cudaStream_t stream) {
     if (prm.P <= 0 || prm.W <= 0 || prm.nleaf < 0 || prm.nleaf > KNOX_MAX_LEAVES
-        || prm.nspec < 0 || prm.nspec > KNOX_MAX_SPECS || body < 0 || body > 1)
+        || prm.nspec < 0 || prm.nspec > KNOX_MAX_SPECS)
         return (int)cudaErrorInvalidValue;
-    if (body == 0) {
-        KNOX_LAUNCH_WPT(fused_tree_regs_kernel, prm.P, prm.W, stream, prm);
-        return (int)cudaGetLastError();
-    }
-    if ((cluster != 1 && cluster != 2 && cluster != 4 && cluster != 8)
-        || slice <= 0 || (slice & 3) || (long long)slice * cluster < prm.W
-        || (slice / 4 + 31) / 32 * 32 > KNOX_TREE_MAX_THREADS
-        || (stages != 4 && stages != 8))
-        return (int)cudaErrorInvalidValue;
-    int nres = 0;
-    prm.vec_fields = 0u;
-    for (int f = 0; f < nfield; ++f) {
-        prm.res_base[f] = ((resident >> f) & 1u) ? nres : -1;
-        if ((resident >> f) & 1u) nres += prm.fwidth[f];
-        if ((prm.W & 3) == 0 && ((uintptr_t)prm.planes[f] & 15) == 0
-            && (prm.plane_stride[f] & 3) == 0 && (prm.pack_stride[f] & 3) == 0)
-            prm.vec_fields |= 1u << f;
-    }
-    bool streams = false;
-    for (int l = 0; l < prm.nleaf; ++l)
-        streams |= prm.res_base[prm.leaf_field[l]] < 0
-            && prm.fwidth[prm.leaf_field[l]] > 0;
-    for (int s = 0; s < prm.nspec; ++s)
-        streams |= prm.res_base[prm.spec_field[s]] < 0
-            && prm.fwidth[prm.spec_field[s]] > 0
-            && (prm.pcnt[s] || prm.mnmx[s]);
-    prm.slice = slice;
-    prm.nres = nres;
-    prm.mask_vec = (prm.W & 3) == 0 && ((uintptr_t)prm.mask_in & 15) == 0
-        && ((uintptr_t)prm.mask_out & 15) == 0;
-    const size_t smem = 4 * (size_t)slice * (nres + (streams ? stages + 1 : 0));
-    return (int)(stages == 4 ? launch_tree_d<4>(prm, cluster, smem, stream)
-                             : launch_tree_d<8>(prm, cluster, smem, stream));
+    KNOX_LAUNCH_WPT(fused_tree_kernel, prm.P, prm.W, stream, prm);
+    return (int)cudaGetLastError();
 }
 
 extern "C" {
 
 // Whole-AND-tree scan with every fused aggregate (fused_tree_agg).
 // Pointer arrays hold one entry per field / leaf / spec; a null pcnt or
-// mnmx entry skips that partial. The geometry (cluster, slice, stages,
-// resident field bits) comes from ops/scan_kernels.tree_cluster_plan.
-// Returns a cudaError_t value.
+// mnmx entry skips that partial. Returns a cudaError_t value.
 int knox_fused_tree_agg(const void* const* planes, const int* fwidths,
                         int nfield, const void* const* lo_bits,
                         const void* const* hi_bits, const void* const* flags,
                         const int* leaf_field, int nleaf,
                         const int* spec_field, void* const* pcnt,
                         void* const* mnmx, int nspec, const void* mask_in,
-                        void* mask_out, void* cnt, int P, int W, int body,
-                        int cluster, int slice, int stages, int resident,
+                        void* mask_out, void* cnt, int P, int W,
                         void* stream) {
     if (nfield < 0 || nfield > KNOX_MAX_FIELDS || nleaf < 0
         || nleaf > KNOX_MAX_LEAVES || nspec < 0 || nspec > KNOX_MAX_SPECS)
@@ -902,21 +447,18 @@ int knox_fused_tree_agg(const void* const* planes, const int* fwidths,
     prm.nspec = nspec;
     prm.P = P;
     prm.W = W;
-    return launch_tree(prm, nfield, body, cluster, slice, stages,
-                       (unsigned)resident, (cudaStream_t)stream);
+    return launch(prm, (cudaStream_t)stream);
 }
 
 // One-leaf range filter AND mask_in, with the filtered column's per-plane
 // masked popcounts (fused_range_sum_masked). plane_stride and pack_stride
-// are in words (see the layout note above); the geometry as above.
-// Returns a cudaError_t value.
+// are in words (see the layout note above). Returns a cudaError_t value.
 int knox_fused_range_sum_masked(const void* planes, int width,
                                 long long plane_stride, long long pack_stride,
                                 const void* lo_bits, const void* hi_bits,
                                 const void* flags, const void* mask_in,
                                 void* mask_out, void* pcnt, void* cnt, int P,
-                                int W, int body, int cluster, int slice,
-                                int stages, int resident, void* stream) {
+                                int W, void* stream) {
     if (width < 0 || width > KNOX_MAX_WIDTH || plane_stride < 0
         || pack_stride < 0)
         return (int)cudaErrorInvalidValue;
@@ -939,8 +481,7 @@ int knox_fused_range_sum_masked(const void* planes, int width,
     prm.nspec = 1;
     prm.P = P;
     prm.W = W;
-    return launch_tree(prm, 1, body, cluster, slice, stages,
-                       (unsigned)resident, (cudaStream_t)stream);
+    return launch(prm, (cudaStream_t)stream);
 }
 
 // One column's range ladder AND mask_in (null = every row) -> mask_out

@@ -33,15 +33,14 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _SIGNATURES = {
     "knox_fused_tree_agg": [_PP, _IP, _I, _PP, _PP, _PP, _IP, _I, _IP, _PP,
-                            _PP, _I, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                            _I, _P],
+                            _PP, _I, _P, _P, _P, _I, _I, _P],
     "knox_fused_range_sum_masked": [_P, _I, _L, _L, _P, _P, _P, _P, _P, _P,
-                                    _P, _I, _I, _I, _I, _I, _I, _I, _P],
+                                    _P, _I, _I, _P],
     "knox_range_mask_count": [_P, _I, _L, _L, _P, _P, _P, _P, _P, _P, _I, _I,
                               _P],
     "knox_masked_plane_popcounts": [_P, _I, _L, _L, _P, _P, _P, _I, _I, _P],
     "knox_group_sums": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I,
-                        _I, _P],
+                        _P],
     "knox_group_chunk_partials": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                   _I, _P],
     "knox_tile_bitonic_sort": [_P, _P, _P, _P, _I, _I, _P],

@@ -9,12 +9,12 @@ plain PyTorch version beside it:
   value (rlo, rhi) and its square (qlo, qhi), in one pass. Replaces the
   TPU kernel `_kernel_moments`.
 
-Both launch the one hand-written CUDA kernel of csrc/group_kernels.cu on a
+Both launch the hand-written CUDA kernel of csrc/group_kernels.cu on a
 CUDA tensor (or raise), and run the plain version on a CPU tensor.
 `LAUNCHES` counts kernel launches and `PLAIN_CALLS` plain-version runs
-taken by a wrapper. `group_tile_plan` gives the kernel's launch geometry
-(histogram mode, ring stages, rows between flushes, blocks); the wrappers
-take it from there unless a caller passes its own.
+taken by a wrapper. `group_tile_plan` gives the kernel's form, chosen by
+G (32-bit shared counters, or u64 atomics in L2 past what fits), and its
+launch geometry.
 
 The contract changed from the TPU kernels' and is the callers' own. The
 TPU kernels emit f32[B, H, L*(C+1)] per-tile sums of the values' byte
@@ -52,20 +52,24 @@ __all__ = ["fused_group_partials", "fused_group_moments_partials",
 
 MAX_ROWS = 1 << 31      # exclusive: the sums stay below 2^63 under it
 
-# csrc/group_kernels.cu: rows per ring stage, threads per block (one
-# producer warp, eight consumer warps), the most chunks between two LIMBS
-# flushes, and the shared memory of a block and of an SM
+# csrc/group_kernels.cu. LIMBS: rows per ring stage, threads per block
+# (one producer warp, eight consumer warps), the most chunks between two
+# flushes, the largest limb, the shared memory of a block and of an SM,
+# the ring's share of it, its most stages and blocks per SM. GLOBAL:
+# threads per block, rows per thread and blocks per SM.
 CHUNK_ROWS = 1024
 BLOCK_THREADS = 288
 LIMB_CHUNKS = 64
 LIMB_MAX = (1 << 16) - 1
 SMEM_BLOCK = 232448
 SMEM_SM = 233472
-RING_BYTES = 65536      # the ring's share of a block's shared memory
+RING_BYTES = 65536
 MAX_STAGES = 4
 BLOCKS_PER_SM = 2
-MODES = {"global": 0, "limbs": 1, "carry": 2}
-SHARED_MODE = "limbs"   # the faster 32-bit form on the H100 (PERF.md)
+GLOBAL_THREADS = 256
+GLOBAL_UNROLL = 4
+GLOBAL_BLOCKS_PER_SM = 4
+MODES = {"global": 0, "limbs": 1}
 
 LAUNCHES = {"fused_group_partials": 0, "fused_group_moments_partials": 0}
 PLAIN_CALLS = {"fused_group_partials": 0, "fused_group_moments_partials": 0}
@@ -81,13 +85,13 @@ def reset_counts() -> None:
 
 @dataclass(frozen=True)
 class GroupPlan:
-    """Launch geometry of knox_group_sums. mode: "limbs" / "carry" (32-bit
-    shared-memory counters) or "global" (u64 atomics in L2, when the
-    histogram does not fit); tile_rows: the most rows a block adds into
-    its counters between two flushes."""
+    """Launch geometry of knox_group_sums. mode: "limbs" (32-bit
+    shared-memory counters fed by a TMA ring of `stages` chunks) or
+    "global" (u64 atomics in L2, when the histogram does not fit);
+    tile_rows: the most rows a block adds into its counters between two
+    flushes (0 for "global")."""
     mode: str
     stages: int
-    flush_chunks: int
     blocks: int
     smem: int
     hist_bytes: int
@@ -99,44 +103,36 @@ def stage_bytes(K: int) -> int:
     return CHUNK_ROWS * 4 * (1 + 2 * K) + CHUNK_ROWS // 8
 
 
+def _ring(K: int) -> tuple[int, int]:
+    """(stages, bytes) of the LIMBS ring, its mbarriers included."""
+    sb = stage_bytes(K)
+    stages = max(2, min(MAX_STAGES, RING_BYTES // sb))
+    return stages, stages * (sb + 16)
+
+
 def max_shared_groups(K: int) -> int:
     """The largest G whose 32-bit counters fit beside the ring in a block's
-    shared memory: the switch from the shared forms to "global"."""
-    sb = stage_bytes(K)
-    stages = max(2, min(MAX_STAGES, RING_BYTES // sb))
-    return (SMEM_BLOCK - stages * (sb + 16)) // (4 * (1 + 4 * K))
+    shared memory: the switch from "limbs" to "global"."""
+    return (SMEM_BLOCK - _ring(K)[1]) // (4 * (1 + 4 * K))
 
 
-def group_tile_plan(n: int, G: int, K: int, sms: int = 132,
-                    mode: str | None = None,
-                    blocks: int | None = None) -> GroupPlan:
-    """The group kernel's geometry for n rows (a multiple of 32), G groups
-    and K value pairs on a card with `sms` SMs. The shared-memory forms
-    take 4(1 + 4K) bytes per group beside a ring of at most RING_BYTES;
-    G past what fits in a block runs "global". `mode` and `blocks`
-    override the choice (a measurement's variants)."""
-    sb = stage_bytes(K)
-    stages = max(2, min(MAX_STAGES, RING_BYTES // sb))
-    ring = stages * (sb + 16)
+def group_tile_plan(n: int, G: int, K: int, sms: int = 132) -> GroupPlan:
+    """The group kernel's form and geometry for n rows (a multiple of 32),
+    G groups and K value pairs on a card with `sms` SMs. "limbs" takes
+    4(1 + 4K) bytes of counters per group beside the ring, and up to
+    BLOCKS_PER_SM blocks per SM where they fit; G past max_shared_groups(K)
+    runs "global" at up to GLOBAL_BLOCKS_PER_SM blocks per SM."""
+    if G > max_shared_groups(K):
+        blocks = min(-(-n // (GLOBAL_THREADS * GLOBAL_UNROLL)),
+                     sms * GLOBAL_BLOCKS_PER_SM)
+        return GroupPlan("global", 0, max(1, blocks), 0, 0, 0)
+    stages, ring = _ring(K)
     hist = 4 * (1 + 4 * K) * G
-    fits = ring + hist <= SMEM_BLOCK
-    if mode is None:
-        mode = SHARED_MODE if fits else "global"
-    if mode not in MODES:
-        raise ValueError(f"group_tile_plan: mode {mode!r}")
-    if mode != "global" and not fits:
-        raise ValueError(f"group_tile_plan: G = {G} does not fit shared "
-                         f"memory in mode {mode}")
-    if mode == "global":
-        hist = 0
     smem = ring + hist
-    nchunks = max(1, -(-n // CHUNK_ROWS))
-    if blocks is None:
-        per_sm = max(1, min(BLOCKS_PER_SM, SMEM_SM // (smem + 1024)))
-        blocks = min(nchunks, sms * per_sm)
-    flush = LIMB_CHUNKS if mode == "limbs" else nchunks
-    return GroupPlan(mode, stages, flush, max(1, blocks), smem, hist,
-                     min(flush * CHUNK_ROWS, n))
+    per_sm = max(1, min(BLOCKS_PER_SM, SMEM_SM // (smem + 1024)))
+    blocks = min(-(-n // CHUNK_ROWS), sms * per_sm)
+    return GroupPlan("limbs", stages, max(1, blocks), smem, hist,
+                     min(LIMB_CHUNKS * CHUNK_ROWS, n))
 
 
 # ---------------------------------------------------------- plain versions --
@@ -177,7 +173,7 @@ def _check(t, name: str, shape, device):
         raise ValueError(f"{name}: not contiguous")
 
 
-def _group_sums(name: str, gid, mask_words, vals, G: int, plan=None):
+def _group_sums(name: str, gid, mask_words, vals, G: int):
     if not isinstance(gid, torch.Tensor) or gid.dim() != 2 \
             or gid.shape[1] % 32:
         raise ValueError(f"{name}: gid must be [P, N] with N % 32 == 0")
@@ -200,9 +196,8 @@ def _group_sums(name: str, gid, mask_words, vals, G: int, plan=None):
     from .cuda_build import load
     lib = load()
     K = len(vals) // 2
-    if plan is None:
-        plan = group_tile_plan(P * N, G, K, torch.cuda.get_device_properties(
-            dev).multi_processor_count)
+    plan = group_tile_plan(P * N, G, K, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
     out = torch.zeros((1 + len(vals), G), dtype=torch.int64, device=dev)
     ptrs = [v.data_ptr() for v in vals] + [None] * (4 - len(vals))
     with torch.cuda.device(dev):
@@ -210,7 +205,7 @@ def _group_sums(name: str, gid, mask_words, vals, G: int, plan=None):
         err = lib.knox_group_sums(gid.data_ptr(), mask_words.data_ptr(),
                                   *ptrs, K, P * N, G, out.data_ptr(),
                                   MODES[plan.mode], plan.stages,
-                                  plan.flush_chunks, plan.blocks, stream)
+                                  plan.blocks, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
                            f"{err}")
@@ -218,17 +213,16 @@ def _group_sums(name: str, gid, mask_words, vals, G: int, plan=None):
     return tuple(out.unbind(0))
 
 
-def fused_group_partials(gid, mask_words, vlo, vhi, G: int, plan=None):
+def fused_group_partials(gid, mask_words, vlo, vhi, G: int):
     """Per-group (counts, Σvlo, Σvhi), each int64[G]: the group sum is
-    Σvlo + Σvhi * 2^32. `plan` (a GroupPlan) overrides the kernel's
-    launch geometry."""
+    Σvlo + Σvhi * 2^32."""
     return _group_sums("fused_group_partials", gid, mask_words, (vlo, vhi),
-                       G, plan)
+                       G)
 
 
 def fused_group_moments_partials(gid, mask_words, rlo, rhi, qlo, qhi,
-                                 G: int, plan=None):
+                                 G: int):
     """Per-group (counts, Σrlo, Σrhi, Σqlo, Σqhi), each int64[G], from one
     pass over the rows."""
     return _group_sums("fused_group_moments_partials", gid, mask_words,
-                       (rlo, rhi, qlo, qhi), G, plan)
+                       (rlo, rhi, qlo, qhi), G)

@@ -25,12 +25,8 @@ int32[w, P, W], or a pack-major tensor [P, w, W] as its view
 
 On a CUDA tensor a wrapper launches its hand-written kernel
 (csrc/scan_kernels.cu) or raises; on a CPU tensor it runs the plain
-version. `tree_cluster_plan` picks the fused kernel's body ("registers",
-the default, or the "staged" cluster body) and its launch geometry;
-`fused_tree_agg` and `fused_range_sum_masked` take it from there unless a
-caller passes its own. Words are int32-carried u32 (ops/words.py).
-`LAUNCHES` counts kernel launches and `PLAIN_CALLS` plain-version runs
-taken by a wrapper.
+version. Words are int32-carried u32 (ops/words.py). `LAUNCHES` counts
+kernel launches and `PLAIN_CALLS` plain-version runs taken by a wrapper.
 
 Per-pack range constants arrive as per-plane select words (0 / ~0) plus
 degenerate-pack flag words, built on the host from u64 min_keys by
@@ -40,7 +36,6 @@ degenerate-pack flag words, built on the host from u64 min_keys by
 from __future__ import annotations
 
 import ctypes
-from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -55,8 +50,7 @@ __all__ = ["range_consts", "range_consts_rel", "fused_range_sum_masked",
            "range_mask_count", "range_mask_count_torch",
            "masked_plane_popcounts", "masked_plane_popcounts_torch",
            "LAUNCHES", "PLAIN_CALLS", "reset_counts", "MAX_FIELDS",
-           "MAX_LEAVES", "MAX_SPECS", "MAX_WIDTH", "TreePlan",
-           "tree_cluster_plan", "field_reads"]
+           "MAX_LEAVES", "MAX_SPECS", "MAX_WIDTH"]
 
 # kernel capacities (csrc/scan_kernels.cu KNOX_MAX_*)
 MAX_FIELDS = 8
@@ -72,20 +66,6 @@ _F_HI_GE_NONE = 3   # hi below the pack domain  -> le_hi = none
 _F_HI_LT_ALL = 4    # hi above the pack domain  -> le_hi = all
 _NFLAGS = 8
 _MM_COLS = 8        # mnmx columns: mn_lo, mn_hi, mx_lo, mx_hi, 4 zeros
-
-# the fused kernel's geometry (csrc/scan_kernels.cu): cluster sizes, one
-# thread per 4 words of a slice, the kernel's static shared memory (an
-# upper bound), the reads each thread keeps in flight, and a CTA's shared
-# memory
-TREE_CLUSTERS = (1, 2, 4, 8)
-TREE_MAX_THREADS = 512
-TREE_STATIC_SMEM = 6656
-TREE_STAGES = (4, 8)
-TREE_DEFAULT_STAGES = 4
-TREE_BODIES = {"registers": 0, "staged": 1}
-TREE_BODY = "registers"         # faster at the main paths (PERF.md)
-SMEM_BLOCK = 232448
-TREE_SMEM_TARGET = 113 * 1024   # two CTAs per SM: the residency budget
 
 _KERNELS = ("fused_range_sum_masked", "fused_tree_agg", "range_mask_count",
             "masked_plane_popcounts")
@@ -119,104 +99,6 @@ def range_consts_rel(rel_lo, rel_hi, width: int):
                    (_F_HI_LT_ALL, hi_lt_all)):
         flags[:, col] = np.where(b, np.uint32(0xFFFFFFFF), np.uint32(0))
     return B.const_bits(lo_rel, width), B.const_bits(hi_rel, width), flags
-
-
-# ------------------------------------------------------- launch geometry --
-
-@dataclass(frozen=True)
-class TreePlan:
-    """Launch geometry of the fused kernel. body "registers" (the first
-    body: one block per pack, words in registers; the other fields unused) or
-    "staged": `cluster` CTAs per pack, CTA r owning words [r * slice,
-    min((r + 1) * slice, W)) with one thread per 4 words (`threads`); each
-    thread keeps `stages` plane reads' copies in flight; `resident` field
-    slots keep their planes in shared memory, the other fields stream
-    through a ring of stages + 1 slots; `smem` dynamic shared-memory
-    bytes."""
-    body: str
-    cluster: int
-    slice: int
-    threads: int
-    stages: int
-    resident: tuple
-    smem: int
-
-    @property
-    def resident_bits(self) -> int:
-        return sum(1 << f for f in self.resident)
-
-
-def field_reads(nfield: int, fwidths, leaf_field, agg_specs) -> tuple:
-    """How many passes of the fused kernel read each field's planes: one
-    per leaf on it, one per sum and one per min / max spec."""
-    reads = [0] * nfield
-    for f in leaf_field:
-        reads[f] += 1
-    for slot, want_sum, want_mm in agg_specs:
-        reads[slot] += int(want_sum) + int(want_mm)
-    return tuple(r if fwidths[f] else 0 for f, r in enumerate(reads))
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-def _tree_geometry(W: int, C: int, widths, reads, stages: int
-                   ) -> TreePlan | None:
-    slice_ = 4 * _cdiv(_cdiv(W, C), 4)
-    threads = 32 * _cdiv(slice_ // 4, 32)
-    if threads > TREE_MAX_THREADS:
-        return None
-    row = 4 * slice_
-    budget = TREE_SMEM_TARGET - TREE_STATIC_SMEM - (stages + 1) * row
-    resident, nres = [], 0
-    for f, (w, r) in enumerate(zip(widths, reads)):
-        if r >= 2 and w and (nres + w) * row <= budget:
-            resident.append(f)
-            nres += w
-    streams = any(r and f not in resident for f, r in enumerate(reads))
-    smem = row * (nres + (stages + 1 if streams else 0))
-    return TreePlan("staged", C, slice_, threads, stages, tuple(resident),
-                    smem)
-
-
-def tree_cluster_plan(P: int, W: int, widths, reads,
-                      cluster: int | None = None,
-                      stages: int = TREE_DEFAULT_STAGES,
-                      body: str | None = None) -> TreePlan:
-    """The fused kernel's geometry for P packs of W words whose fields have
-    plane widths `widths` and are read by `reads[f]` passes (field_reads).
-
-    The body is TREE_BODY unless `body` says otherwise or a `cluster` is
-    forced (which implies "staged"). The staged body takes the smallest
-    cluster whose slices need at most TREE_MAX_THREADS threads, and keeps a
-    field read twice or more resident where it fits beside the ring within
-    TREE_SMEM_TARGET (two CTAs per SM: more residency costs more in warps
-    per SM than the L2 re-reads it saves, PERF.md). `cluster` and
-    `stages` force a choice (a measurement's variants)."""
-    if P <= 0 or W <= 0 or len(widths) != len(reads):
-        raise ValueError(f"tree_cluster_plan: P={P}, W={W}, {len(widths)} "
-                         f"widths, {len(reads)} reads")
-    if body is None:
-        body = "staged" if cluster is not None else TREE_BODY
-    if body not in TREE_BODIES:
-        raise ValueError(f"tree_cluster_plan: body {body!r}")
-    if body == "registers":
-        if W > 16 * 256:
-            raise ValueError(f"tree_cluster_plan: W={W} exceeds 4096 words "
-                             f"for the registers body")
-        return TreePlan("registers", 1, W, 32 * _cdiv(min(W, 256), 32), 0,
-                        (), 0)
-    if stages not in TREE_STAGES:
-        raise ValueError(f"tree_cluster_plan: stages {stages}")
-    if cluster is not None and cluster not in TREE_CLUSTERS:
-        raise ValueError(f"tree_cluster_plan: cluster {cluster}")
-    for C in (cluster,) if cluster else TREE_CLUSTERS:
-        plan = _tree_geometry(W, C, widths, reads, stages)
-        if plan is not None:
-            return plan
-    raise ValueError(f"tree_cluster_plan: W={W} needs a larger cluster than "
-                     f"{cluster or TREE_CLUSTERS[-1]}")
 
 
 # ---------------------------------------------------------- plain versions --
@@ -328,12 +210,11 @@ def _raise_on(err: int, name: str):
 
 
 def fused_range_sum_masked(planes, lo_bits, hi_bits, flags, mask_in,
-                           width: int, plan: TreePlan | None = None):
+                           width: int):
     """planes int32[max(w,1), P, W] (plane-major, or the permuted view of
     a pack-major tensor); lo_bits/hi_bits int32[P, max(w,1)] and flags
     int32[P, 8] from range_consts; mask_in int32[P, W]. Returns (mask
-    int32[P, W], pcnt int32[P, max(w,1)], cnt int32[P]). `plan` overrides
-    the kernel's geometry (tree_cluster_plan)."""
+    int32[P, W], pcnt int32[P, max(w,1)], cnt int32[P])."""
     _check_width(width)
     P, W = mask_in.shape
     w1 = max(width, 1)
@@ -352,10 +233,6 @@ def fused_range_sum_masked(planes, lo_bits, hi_bits, flags, mask_in,
         raise ValueError(f"fused_range_sum_masked: unsupported device {dev}")
     from .cuda_build import load
     lib = load()
-    if plan is None:
-        plan = tree_cluster_plan(P, W, (width,),
-                                 field_reads(1, (width,), (0,),
-                                             ((0, True, False),)))
     mask = torch.empty((P, W), dtype=torch.int32, device=dev)
     pcnt = torch.empty((P, w1), dtype=torch.int32, device=dev)
     cnt = torch.empty((P,), dtype=torch.int32, device=dev)
@@ -365,8 +242,7 @@ def fused_range_sum_masked(planes, lo_bits, hi_bits, flags, mask_in,
             planes.data_ptr(), width, plane_stride, pack_stride,
             lo_bits.data_ptr(), hi_bits.data_ptr(), flags.data_ptr(),
             mask_in.data_ptr(), mask.data_ptr(), pcnt.data_ptr(),
-            cnt.data_ptr(), P, W, TREE_BODIES[plan.body], plan.cluster,
-            plan.slice, plan.stages, plan.resident_bits, stream)
+            cnt.data_ptr(), P, W, stream)
     _raise_on(err, "fused_range_sum_masked")
     LAUNCHES["fused_range_sum_masked"] += 1
     return mask, pcnt, cnt
@@ -456,7 +332,7 @@ def _ints(xs):
 
 
 def fused_tree_agg(planes_list, leaf_ops, leaf_field, mask_in, fwidths,
-                   agg_specs, plan: TreePlan | None = None):
+                   agg_specs):
     """Whole-AND-tree scan + every fused aggregate partial in one pass.
 
     planes_list: per-FIELD planes int32[max(w_f,1), P, W] (deduplicated);
@@ -465,8 +341,7 @@ def fused_tree_agg(planes_list, leaf_ops, leaf_field, mask_in, fwidths,
     agg_specs: (field_slot, want_sum, want_mm) per aggregate — want_sum
     emits pcnt int32[P, max(w_f,1)], want_mm mnmx int32[P, 8]
     (mn_lo, mn_hi, mx_lo, mx_hi pack-relative, then 4 zero columns).
-    Empty agg_specs is a mask-only plan. `plan` overrides the kernel's
-    geometry (tree_cluster_plan).
+    Empty agg_specs is a mask-only plan.
 
     Returns (mask int32[P, W], cnt int32[P], parts: one dict per spec)."""
     fwidths = tuple(int(w) for w in fwidths)
@@ -501,9 +376,6 @@ def fused_tree_agg(planes_list, leaf_ops, leaf_field, mask_in, fwidths,
         raise ValueError(f"fused_tree_agg: unsupported device {dev}")
     from .cuda_build import load
     lib = load()
-    if plan is None:
-        plan = tree_cluster_plan(P, W, fwidths, field_reads(
-            nf, fwidths, leaf_field, agg_specs))
     mask = torch.empty((P, W), dtype=torch.int32, device=dev)
     cnt = torch.empty((P,), dtype=torch.int32, device=dev)
     parts, pcnts, mnmxs = [], [], []
@@ -526,8 +398,7 @@ def fused_tree_agg(planes_list, leaf_ops, leaf_field, mask_in, fwidths,
             _ptrs([o[2] for o in leaf_ops]), _ints(leaf_field), nl,
             _ints([s for s, _a, _b in agg_specs]), _ptrs(pcnts),
             _ptrs(mnmxs), ns, mask_in.data_ptr(), mask.data_ptr(),
-            cnt.data_ptr(), P, W, TREE_BODIES[plan.body], plan.cluster,
-            plan.slice, plan.stages, plan.resident_bits, stream)
+            cnt.data_ptr(), P, W, stream)
     _raise_on(err, "fused_tree_agg")
     LAUNCHES["fused_tree_agg"] += 1
     return mask, cnt, parts

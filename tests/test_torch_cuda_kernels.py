@@ -196,20 +196,16 @@ def test_wrapper_rejects_bad_operands(cuda):
                           leaf_field, mask_in, fwidths, specs)
 
 
-@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
 @pytest.mark.parametrize("P,W", [(1, 33), (3, 33), (3, 2048), (5, 40)])
-def test_tree_kernel_cluster_sizes(cuda, cluster, P, W):
-    """The cluster kernel at every cluster size against the plain version:
-    entry()'s shape (two re-read fields, resident where they fit, else
-    streamed), a mask-only streamed field, W % 4 != 0 (copies by hand),
-    one pack, and CTAs without words (W = 33 at 8 CTAs)."""
-    rng = np.random.default_rng(cluster * 100 + P * 10 + W)
+def test_tree_kernel_edge_shapes(cuda, P, W):
+    """The fused kernel against the plain version at entry()'s form (two
+    fields read by a leaf and by a sum or min / max) plus a mask-only
+    field: one pack, W % 4 != 0 and W below a block's threads."""
+    rng = np.random.default_rng(P * 10 + W)
     widths = (16, 41, 20)
     specs = ((1, True, False), (0, False, True), (0, True, False))
     args = _dev(random_tree_case(rng, widths, P, W, 3, specs), cuda)
-    plan = SK.tree_cluster_plan(P, W, widths, SK.field_reads(
-        3, widths, args[2], specs), cluster=cluster)
-    got = SK.fused_tree_agg(*args, plan=plan)
+    got = SK.fused_tree_agg(*args)
     want = SK.fused_tree_agg_torch(*args)
     torch.cuda.synchronize()
     _same(got[0], want[0], "mask")
@@ -217,21 +213,18 @@ def test_tree_kernel_cluster_sizes(cuda, cluster, P, W):
     for d, rd in zip(got[2], want[2]):
         for k in d:
             _same(d[k], rd[k], k)
-    got1 = SK.fused_range_sum_masked(args[0][0], *args[1][0], args[3], 16,
-                                     plan=SK.tree_cluster_plan(
-                                         P, W, (16,), (2,), cluster=cluster))
+    got1 = SK.fused_range_sum_masked(args[0][0], *args[1][0], args[3], 16)
     for g, w in zip(got1, SK.fused_range_sum_masked_torch(
             args[0][0], *args[1][0], args[3], 16)):
         _same(g, w, "fused_range_sum_masked")
 
 
-@pytest.mark.parametrize("cluster", [1, 2, 4, 8])
-def test_tree_kernel_match_in_last_slice(cuda, cluster):
-    """Rows pass only in each pack's last slice: the other CTAs' min and
-    max are the identities and the cluster's combine must keep the last
-    slice's; one pack has no row at all."""
-    rng = np.random.default_rng(cluster)
-    P, W, widths = 4, 2048, (16, 41)
+@pytest.mark.parametrize("W", [33, 2048])
+def test_tree_kernel_match_in_last_words(cuda, W):
+    """Rows pass only in each pack's last 3 words: the min and max come
+    from them alone; one pack has no row at all."""
+    rng = np.random.default_rng(W)
+    P, widths = 4, (16, 41)
     specs = ((0, True, True), (1, True, True))
     case = list(random_tree_case(rng, widths, P, W, 2, specs))
     case[0] = [np.ascontiguousarray(p) for p in case[0]]
@@ -243,9 +236,7 @@ def test_tree_kernel_match_in_last_slice(cuda, cluster):
         op[2][:, 4] = 0xFFFFFFFF              # hi above every pack
         op[2][:, 1] = 0xFFFFFFFF              # lo at or below every pack
     args = _dev(tuple(case), cuda)
-    plan = SK.tree_cluster_plan(P, W, widths, SK.field_reads(
-        2, widths, args[2], specs), cluster=cluster)
-    got = SK.fused_tree_agg(*args, plan=plan)
+    got = SK.fused_tree_agg(*args)
     want = SK.fused_tree_agg_torch(*args)
     torch.cuda.synchronize()
     assert int(want[1][:-1].min()) > 0 and int(want[1][-1]) == 0
@@ -304,20 +295,20 @@ def _group_fns(K):
                             GK.fused_group_moments_partials_torch))
 
 
-@pytest.mark.parametrize("mode", ["limbs", "carry", "global"])
-@pytest.mark.parametrize("G", [1, 200])
+@pytest.mark.parametrize("G", [1, 200, 65536])
 @pytest.mark.parametrize("K", [1, 2])
-def test_group_kernel_modes(cuda, mode, G, K):
-    """Each histogram form of the kernel against the plain version, with a
-    ragged last chunk (n % 1024 = 512)."""
+def test_group_kernel_forms(cuda, G, K):
+    """LIMBS (G = 1 and 200) and GLOBAL (G = 65,536) against the plain
+    version, with a ragged last chunk (n % 1024 = 512)."""
     rng = np.random.default_rng(G * 7 + K)
     args = _group_case(rng, 3, 2560, G, K, cuda)
     kern, plain = _group_fns(K)
-    n = args[0].numel()
-    got = kern(*args, G, plan=GK.group_tile_plan(n, G, K, mode=mode))
+    plan = GK.group_tile_plan(args[0].numel(), G, K)
+    assert plan.mode == ("global" if G == 65536 else "limbs")
+    got = kern(*args, G)
     torch.cuda.synchronize()
     for g, w in zip(got, plain(*args, G)):
-        _same(g, w, mode)
+        _same(g, w, plan.mode)
 
 
 @pytest.mark.parametrize("K", [1, 2])
@@ -325,7 +316,7 @@ def test_group_kernel_at_shared_threshold(cuda, K):
     """G at the largest shared histogram and one past it (global)."""
     gmax = GK.max_shared_groups(K)
     kern, plain = _group_fns(K)
-    for G, mode in ((gmax, GK.SHARED_MODE), (gmax + 1, "global")):
+    for G, mode in ((gmax, "limbs"), (gmax + 1, "global")):
         args = _group_case(np.random.default_rng(G), 2, 32768, G, K, cuda)
         plan = GK.group_tile_plan(args[0].numel(), G, K)
         assert plan.mode == mode
@@ -335,26 +326,27 @@ def test_group_kernel_at_shared_threshold(cuda, K):
             _same(g, w, f"G={G}")
 
 
-@pytest.mark.parametrize("mode", ["limbs", "carry"])
 @pytest.mark.parametrize("K", [1, 2])
-def test_group_kernel_overflow_bound(cuda, mode, K):
-    """One block, one group, every row passing with all-ones value words:
-    every LIMBS tile reaches 65,536 * 65,535, and CARRY wraps on every
-    row."""
-    n = 4 * 65536
+def test_group_kernel_overflow_bound(cuda, K):
+    """One group, every row passing with all-ones value words, and as many
+    rows as give every block of the grid a full 65,536-row tile: each
+    limb counter reaches 65,536 * 65,535 before its flush."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n = sms * GK.BLOCKS_PER_SM * GK.LIMB_CHUNKS * GK.CHUNK_ROWS
+    plan = GK.group_tile_plan(n, 1, K, sms)
+    assert plan.mode == "limbs" and plan.blocks * plan.tile_rows == n
+    assert plan.tile_rows * GK.LIMB_MAX < 1 << 32
     gid = torch.zeros((4, n // 4), dtype=torch.int32, device=cuda)
     ones = torch.full((4, n // 4), -1, dtype=torch.int32, device=cuda)
     mask = torch.full((4, n // 128), -1, dtype=torch.int32, device=cuda)
     args = [gid, mask] + [ones] * (2 * K)
     kern, plain = _group_fns(K)
-    plan = GK.group_tile_plan(n, 1, K, mode=mode, blocks=1)
-    assert plan.tile_rows * GK.LIMB_MAX < 1 << 32 or mode == "carry"
-    got = kern(*args, 1, plan=plan)
+    got = kern(*args, 1)
     torch.cuda.synchronize()
     want = plain(*args, 1)
     assert int(want[1][0]) == n * 0xFFFFFFFF
     for g, w in zip(got, want):
-        _same(g, w, mode)
+        _same(g, w, "all-ones tiles")
 
 
 def test_group_wrapper_rejects_bad_operands(cuda):

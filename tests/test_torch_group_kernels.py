@@ -191,38 +191,45 @@ def test_group_tile_plan_invariants(G, n, K):
     G = _groups(G, K)
     plan = GK.group_tile_plan(n, G, K)
     shared = G <= GK.max_shared_groups(K)
-    assert plan.mode == (GK.SHARED_MODE if shared else "global")
+    assert plan.mode == ("limbs" if shared else "global")
     assert plan.smem <= GK.SMEM_BLOCK
-    assert plan.smem == plan.stages * (GK.stage_bytes(K) + 16) \
-        + plan.hist_bytes
-    assert plan.hist_bytes == (4 * (1 + 4 * K) * G if shared else 0)
-    assert 2 <= plan.stages <= GK.MAX_STAGES
-    nchunks = -(-n // GK.CHUNK_ROWS)
-    assert 1 <= plan.blocks <= min(nchunks, 132 * GK.BLOCKS_PER_SM)
-    if plan.mode == "limbs":
-        # a counter adds at most tile_rows limbs of at most 2^16 - 1
-        assert plan.flush_chunks <= GK.LIMB_CHUNKS
-        assert plan.flush_chunks * GK.CHUNK_ROWS * GK.LIMB_MAX < 1 << 32
+    if shared:
+        assert plan.smem == plan.stages * (GK.stage_bytes(K) + 16) \
+            + plan.hist_bytes
+        assert plan.hist_bytes == 4 * (1 + 4 * K) * G
+        assert 2 <= plan.stages <= GK.MAX_STAGES
+        nchunks = -(-n // GK.CHUNK_ROWS)
+        assert 1 <= plan.blocks <= min(nchunks, 132 * GK.BLOCKS_PER_SM)
+        # a counter adds at most tile_rows limbs of at most 2^16 - 1, and
+        # a block's count at most tile_rows ones
+        assert plan.tile_rows <= GK.LIMB_CHUNKS * GK.CHUNK_ROWS
         assert plan.tile_rows * GK.LIMB_MAX < 1 << 32
-    # counts (and CARRY's wrap counts) of one block stay below 2^32
-    assert plan.tile_rows <= n < 1 << 32
-    for mode in ("limbs", "carry"):
-        if shared:
-            assert GK.group_tile_plan(n, G, K, mode=mode).mode == mode
-        else:
-            with pytest.raises(ValueError, match="does not fit"):
-                GK.group_tile_plan(n, G, K, mode=mode)
+        assert plan.tile_rows <= n
+    else:
+        assert (plan.stages, plan.smem, plan.hist_bytes, plan.tile_rows) \
+            == (0, 0, 0, 0)
+        per_block = GK.GLOBAL_THREADS * GK.GLOBAL_UNROLL
+        assert 1 <= plan.blocks <= min(-(-n // per_block),
+                                       132 * GK.GLOBAL_BLOCKS_PER_SM)
 
 
-def test_group_tile_plan_overrides():
-    """A measurement's variants: a forced mode and block count."""
-    plan = GK.group_tile_plan(1 << 20, 1, 1, mode="carry", blocks=1)
-    assert (plan.mode, plan.blocks, plan.tile_rows) == ("carry", 1, 1 << 20)
-    plan = GK.group_tile_plan(1 << 20, 1, 2, mode="limbs", blocks=1)
-    assert plan.tile_rows == GK.LIMB_CHUNKS * GK.CHUNK_ROWS == 1 << 16
-    assert GK.group_tile_plan(1 << 20, 10, 1, mode="global").hist_bytes == 0
-    with pytest.raises(ValueError, match="mode"):
-        GK.group_tile_plan(1 << 20, 10, 1, mode="f32")
+def test_group_tile_plan_geometry():
+    """The main paths' geometry: config #3 (16,777,216 rows, G = 1000) and
+    #6 (4,194,304 rows, G = 1024, K = 2) run LIMBS at two blocks per SM;
+    #3c (G = 65,536) runs GLOBAL at four 256-thread blocks per SM, 528 on
+    132 SMs; a small input takes one block per chunk; the block counts
+    follow the card's SMs."""
+    c3 = GK.group_tile_plan(1 << 24, 1000, 1)
+    assert (c3.mode, c3.blocks, c3.tile_rows) == ("limbs", 264, 1 << 16)
+    c6 = GK.group_tile_plan(1 << 22, 1024, 2)
+    assert (c6.mode, c6.blocks) == ("limbs", 264)
+    c3c = GK.group_tile_plan(1 << 22, 1 << 16, 1)
+    assert (c3c.mode, c3c.blocks) == ("global", 528)
+    small = GK.group_tile_plan(3 * 1024 + 32, 10, 1)
+    assert (small.blocks, small.tile_rows) == (4, 3 * 1024 + 32)
+    assert GK.group_tile_plan(1 << 24, 1000, 1, sms=114).blocks == 228
+    assert GK.group_tile_plan(1 << 22, 1 << 16, 2, sms=114).blocks == 456
+    assert GK.MODES == {"global": 0, "limbs": 1}
 
 
 def test_group_partials_one_group_vs_pallas():

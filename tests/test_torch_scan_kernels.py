@@ -150,81 +150,11 @@ def test_width_zero_field(rng):
         assert not parts[0]["mnmx"].any()
 
 
-# ------------------------------------------- the fused kernel's launch plan --
+# ----------------------------------------------- edge shapes vs numpy / XLA --
 
-@pytest.mark.parametrize("cluster", [None, 1, 2, 4, 8])
-@pytest.mark.parametrize("W", [1, 33, 2047, 2048])
-def test_tree_cluster_plan_slices_cover_w(W, cluster):
-    """The cluster's slices cover a pack's W words exactly and without
-    overlap, each a multiple of 4 words (16-byte copies), within a CTA's
-    threads and shared memory; the default leaves no CTA without words."""
-    widths, reads = (16, 41, 20), (2, 2, 1)
-    plan = SK.tree_cluster_plan(256, W, widths, reads, cluster=cluster,
-                                body="staged")
-    assert plan.body == "staged"
-    C, sl = plan.cluster, plan.slice
-    assert sl % 4 == 0 and C in SK.TREE_CLUSTERS
-    spans = [(r * sl, min((r + 1) * sl, W)) for r in range(C)]
-    words = [j for a, b in spans for j in range(a, b)]
-    assert words == list(range(W))
-    if cluster is None:
-        assert all(a < b for a, b in spans)
-    else:
-        assert C == cluster
-    assert plan.threads == 32 * -(-(sl // 4) // 32) <= SK.TREE_MAX_THREADS
-    assert plan.smem + SK.TREE_STATIC_SMEM <= SK.SMEM_BLOCK
-    assert plan.stages in SK.TREE_STAGES
-    nres = sum(widths[f] for f in plan.resident)
-    assert all(reads[f] >= 2 for f in plan.resident)
-    streams = any(r and f not in plan.resident for f, r in enumerate(reads))
-    assert plan.smem == 4 * sl * (nres + (plan.stages + 1 if streams else 0))
-    assert plan.resident_bits == sum(1 << f for f in plan.resident)
-
-
-def test_tree_cluster_plan_residence():
-    """The default body is the first, "registers" one. The staged body's
-    default is one CTA per pack at W = 2048 with nothing resident (a
-    16-plane field's 128 KiB would leave one CTA per SM); forced clusters
-    keep re-read fields resident within two CTAs per SM (entry()'s val and
-    bal at 8, config #1's val at 2), in field order where not all fit; a
-    field read once streams through stages + 1 ring slots; a width-0 field
-    is never read."""
-    W = 2048
-    reg = SK.tree_cluster_plan(256, W, (16,), (2,))
-    assert (reg.body, reg.threads, reg.smem) == ("registers", 256, 0)
-    assert SK.tree_cluster_plan(8, 40, (16,), (2,)).threads == 64
-    with pytest.raises(ValueError):
-        SK.tree_cluster_plan(8, 4100, (16,), (2,))
-    reads = SK.field_reads(2, (16, 41), (0, 1),
-                           ((1, True, False), (0, False, True)))
-    dflt = SK.tree_cluster_plan(256, W, (16, 41), reads, body="staged")
-    assert (dflt.cluster, dflt.resident, dflt.stages) == (1, (), 4)
-    assert dflt.smem == 4 * W * (SK.TREE_DEFAULT_STAGES + 1)
-    entry = SK.tree_cluster_plan(256, W, (16, 41), reads, cluster=8)
-    assert entry.resident == (0, 1) and entry.smem == 4 * 256 * 57
-    assert entry.smem + SK.TREE_STATIC_SMEM <= SK.TREE_SMEM_TARGET
-    cfg1 = SK.tree_cluster_plan(256, W, (16,), (2,), cluster=2)
-    assert cfg1.resident == (0,) and cfg1.smem == 4 * 1024 * 16
-    four = SK.tree_cluster_plan(256, W, (16, 41), reads, cluster=4)
-    assert four.resident == (0,)
-    assert four.smem == 4 * 512 * (16 + SK.TREE_DEFAULT_STAGES + 1)
-    mask_only = SK.tree_cluster_plan(256, W, (41,), (1,), cluster=1,
-                                     stages=8)
-    assert mask_only.resident == () and mask_only.smem == 4 * 9 * 2048
-    assert SK.field_reads(2, (0, 8), (0, 1), ((0, True, True),)) == (0, 1)
-    with pytest.raises(ValueError):
-        SK.tree_cluster_plan(8, 8 * 2048 + 4, (8,), (1,), body="staged")
-    with pytest.raises(ValueError):
-        SK.tree_cluster_plan(8, 64, (8,), (1,), cluster=3)
-    with pytest.raises(ValueError):
-        SK.tree_cluster_plan(8, 64, (8,), (1,), stages=3, body="staged")
-    with pytest.raises(ValueError):
-        SK.tree_cluster_plan(8, 64, (8,), (1,), body="tma")
-
-
-def _oracle_case(rng, P, W, widths, leaves, last_slice=0):
+def _oracle_case(rng, P, W, widths, leaves, last_words=0):
     """Values v_f u64[P, 32W] < 2^w_f, their planes, a random incoming
-    mask (only the last `last_slice` words of each pack when set, the last
+    mask (only the last `last_words` words of each pack when set, the last
     pack empty) and leaves (field, lo, hi) with min_keys 0, so that the
     range consts are the values' own bounds."""
     N = 32 * W
@@ -237,8 +167,8 @@ def _oracle_case(rng, P, W, widths, leaves, last_slice=0):
         for p in range(max(w, 1))]) for v, w in zip(vals, widths)]
     mask_in = rng.integers(0, 1 << 32, (P, W), dtype=np.uint64) \
         .astype(np.uint32)
-    if last_slice:
-        mask_in[:, :-last_slice] = 0
+    if last_words:
+        mask_in[:, :-last_words] = 0
     mask_in[-1] = 0
     ops = [SK.range_consts(np.zeros(P, np.uint64), np.uint64(lo),
                            np.uint64(hi), widths[f]) for f, lo, hi in leaves]
@@ -253,20 +183,21 @@ def _oracle_rows(vals, mask_in, widths, leaves, P, W):
     return bits
 
 
-@pytest.mark.parametrize("last_slice", [0, 3])
-@pytest.mark.parametrize("P,W", [(1, 33), (3, 33), (1, 2048), (3, 2048)])
-def test_fused_tree_agg_edges_vs_numpy(P, W, last_slice):
-    """P = 1 and 3 and W = 33 (the reference's Pallas kernel tiles packs
-    by 8, so its interpret mode cannot take these shapes): the plain
-    version against a numpy oracle over the values the planes encode,
-    also with rows passing only in each pack's last 3 words (the last
-    slice of a cluster)."""
-    rng = np.random.default_rng(P * 1000 + W + last_slice)
+@pytest.mark.parametrize("last_words", [0, 3])
+@pytest.mark.parametrize("P,W", [(1, 1), (3, 1), (1, 33), (3, 33),
+                                 (1, 2047), (3, 2047), (1, 2048), (3, 2048)])
+def test_fused_tree_agg_edges_vs_numpy(P, W, last_words):
+    """P = 1 and 3 and W = 1, 33 and 2047 (the reference's Pallas kernel
+    tiles packs by 8, so its interpret mode cannot take these shapes): the
+    plain version against a numpy oracle over the values the planes
+    encode, also with rows passing only in each pack's last 3 words and
+    one pack without any."""
+    rng = np.random.default_rng(P * 1000 + W + last_words)
     widths = (16, 41, 7)
     leaves = ((0, 1000, 50000), (1, 1 << 30, 1 << 40))
     specs = ((1, True, False), (0, False, True), (2, True, True))
     vals, planes, mask_in, ops = _oracle_case(rng, P, W, widths, leaves,
-                                              last_slice)
+                                              last_words)
     mask, cnt, parts = SK.fused_tree_agg(
         [_words(p) for p in planes],
         [tuple(_words(a) for a in op) for op in ops], (0, 1),
@@ -295,11 +226,13 @@ def test_fused_tree_agg_edges_vs_numpy(P, W, last_slice):
             assert not mm[:, 4:].any()
 
 
-@pytest.mark.parametrize("P,W", [(1, 33), (3, 33), (3, 2048)])
+@pytest.mark.parametrize("P,W", [(1, 1), (1, 33), (3, 33), (3, 2047),
+                                 (3, 2048)])
 def test_fused_range_sum_masked_edges_vs_xla(P, W):
-    """P = 1 and 3, W = 33: the one-leaf entry against the reference's
-    XLA composition fused_range_sum_ref (its Pallas kernel asserts P % 8
-    == 0), with rows passing only in each pack's last 3 words."""
+    """P = 1 and 3, W = 1, 33 and 2047: the one-leaf entry against the
+    reference's XLA composition fused_range_sum_ref (its Pallas kernel
+    asserts P % 8 == 0), with rows passing only in each pack's last 3
+    words."""
     rng = np.random.default_rng(P * 7 + W)
     vals, planes, mask_in, _ops = _oracle_case(rng, P, W, (16,), (), 3)
     mins = rng.integers(0, 1000, P, dtype=np.uint64)
