@@ -7,7 +7,10 @@ Phases, each printed on its own line; any failure raises and the script
 exits nonzero:
   1. card: nvidia-smi's name and power limit, torch's device name;
   2. build: the CUDA kernels of knoxdb_tpu_torch/csrc from source (nvcc,
-     sm_90a), with the seconds it took and ptxas' register report;
+     sm_90a), with the seconds it took and ptxas' register report; the SASS
+     atomics of the scan and group libraries; the split scan kernels'
+     (5a, 5b) ptxas lines and their global loads by width (LDG.E.128 of
+     the 16-byte form against LDG.E);
   3. kernel = plain: each kernel against its plain PyTorch version on the
      card, bit for bit. Scan kernels: random planes at widths 0-64, P = 64,
      W = 2048, 1-3 leaves, sum and min/max specs and an empty pack; P = 1
@@ -22,7 +25,13 @@ exits nonzero:
      masked_plane_popcounts): widths 0, 1, 16, 33 and 64 at 37 packs, every
      combination of the five flag words, random, empty, full and absent
      incoming masks, and the one-leaf kernel and both split kernels on the
-     permuted view of a pack-major tensor against the plane-major result.
+     permuted view of a pack-major tensor against the plane-major result;
+     then at the slice and alignment edges (P = 1 with W = 2048 and 2052,
+     P = 64 with W = 2052, P = 3 with W = 8192, P = 37 with W = 33; widths
+     0, 1, 48, 64; masks
+     absent, empty, full, random and in each pack's last word only) in
+     the 16-byte form (plane-major, pack-major view) and the scalar form
+     (W = 33, a misaligned base, pack stride W + 1).
      The chunk kernel (group_chunk_partials, kernels #6 and #7): both probe
      geometries (H = 128, L = 8 and H = 256, L = 32 with its 224 KiB of
      shared memory), float32 and int32 outputs, interleaved and band
@@ -76,7 +85,9 @@ exits nonzero:
   5. timing (CUDA events, medians over alternating query variants, with
      the host's launch overhead hidden behind a GPU sleep): each kernel
      and its plain version at the main paths' shapes (scan kernels also
-     with L2 flushed before each launch); the host wall time of whole
+     with L2 flushed before each launch by a 128 MiB fill, whose dirty
+     lines the launch then writes back, and evicted by a 128 MiB read,
+     which leaves L2 clean); the host wall time of whole
      scan(), group_scan() and series_scan() calls; rows/s; the kernel's
      bytes/s as a share of a same-run torch read pass over 256 MiB; and
      for group_scan and series_scan the device time of each stage (mask,
@@ -87,7 +98,9 @@ exits nonzero:
      core's wall and its device time in sorts, in the D2H copy and in the
      rest; scan(project=) and the tx join's wall; the split kernels on
      config #1's val planes beside the one-leaf kernel, warm and L2-flushed
-     and at the pack-major view; wall and device idle share of every
+     and at the pack-major view (5a and 5b first on every operand set
+     that config #2's OR subtree and fee RANGE, config #4's big RANGE and
+     config #6f's price RANGE hand them); wall and device idle share of every
      config #2 and config #4 call; top-k's stages (add_const_planes,
      topk_select, the gathers with the projection) and kernel launches per
      call; the DELTA decode's transpose and prefix sum; the chunk kernel at
@@ -316,11 +329,69 @@ def phase_split_kernels_vs_plain(dev):
                     raise AssertionError(f"{fn.__name__} at the pack-major "
                                          f"view, w={width}: {err}")
                 nview += 1
+    nedge, forms = _split_edges(dev, rng)
     torch.cuda.synchronize()
     print(f"phase 3 split kernels=plain: {ncase} cases bit-identical "
           f"(P={P}, W={W}, widths 0, 1, 16, 33, 64, all 32 flag "
           f"combinations, random / empty / full / absent masks); {nview} "
-          f"pack-major-view results = plane-major (kernels #1, 5a, 5b)")
+          f"pack-major-view results = plane-major (kernels #1, 5a, 5b); "
+          f"{nedge} slice and alignment edge cases bit-identical: {forms}")
+
+
+def _split_edges(dev, rng):
+    """5a and 5b = plain at the shapes where the pack's slices and the
+    load form change: one pack, W = 2052 (a cluster of two CTAs, the last
+    one quad short), 8192 (a cluster of four) and 33, widths 0, 1, 48, 64,
+    every incoming mask, in the 16-byte form
+    (plane-major, pack-major view) and the scalar form (W = 33, a
+    misaligned base, pack stride W + 1); and a pack whose only passing
+    rows lie in the last word of its last slice."""
+    import torch
+    from knoxdb_tpu_torch.ops import scan_kernels as SK
+    from knoxdb_tpu_torch.ops import words as WD
+    from knoxdb_tpu_torch.testing import (misaligned_copy, random_tree_case,
+                                          split_layouts, split_masks)
+
+    n = 0
+    forms = {}
+    for P, W in ((1, 2048), (1, 2052), (64, 2052), (3, 8192), (37, 33)):
+        for width in (0, 1, 48, 64):
+            planes, ops, _lf, _m, _fw, _sp = random_tree_case(
+                rng, (width,), P, W, 1, (), empty_pack=False)
+            cons = [WD.to_words(a, dev) for a in ops[0]]
+            # every row passes the ladder: the mask in decides alone
+            allpass = cons[2].clone()
+            allpass[:, 1] = allpass[:, 4] = -1
+            allpass[:, 0] = allpass[:, 3] = 0
+            for layout, pt in split_layouts(WD.to_words(planes[0],
+                                                        dev)).items():
+                form = "scalar" if W % 4 or layout in (
+                    "misaligned", "odd pack stride") else "16-byte"
+                forms.setdefault(form, set()).add(f"{layout} P={P} W={W}")
+                for mname, m in split_masks(rng, P, W).items():
+                    mt = None if m is None else WD.to_words(m, dev)
+                    if mt is not None and layout == "misaligned":
+                        mt = misaligned_copy(mt)
+                    flags = allpass if mname == "last word" else cons[2]
+                    got = SK.range_mask_count(pt, cons[0], cons[1], flags,
+                                              mt, width)
+                    err = _max_err(got, SK.range_mask_count_torch(
+                        pt, cons[0], cons[1], flags, mt, width))
+                    if mt is not None:
+                        err = max(err, _max_err(
+                            SK.masked_plane_popcounts(pt, mt, width),
+                            SK.masked_plane_popcounts_torch(pt, mt, width)))
+                    if mname == "last word" and not bool(
+                            (got[1] == WD.popcount(mt[:, -1])).all()):
+                        raise AssertionError(f"split kernels P={P} W={W}: "
+                                             f"last-word counts {got[1]}")
+                    if err:
+                        raise AssertionError(
+                            f"split kernels P={P} W={W} w={width} {layout} "
+                            f"mask={mname}: max abs err {err}")
+                    n += 1
+    torch.cuda.synchronize()
+    return n, {k: sorted(v) for k, v in forms.items()}
 
 
 def phase_group_kernels_vs_plain(dev):
@@ -924,16 +995,27 @@ def _cfg6f_check(data, out, t0: int):
     return int(cnt.sum()), int(nr.sum()), max(worst, float(err.max()))
 
 
+def _price_tree(sch, lo, hi):
+    """Config #6f's price RANGE [lo, hi] leaf."""
+    from knoxdb_tpu_torch.query import filter as Q
+    from knoxdb_tpu_torch.types import FilterMode
+    return Q.leaf(Q.Filter(sch.field("price"), FilterMode.RANGE,
+                           (lo, hi))).optimize()
+
+
+def _price_aggs():
+    from knoxdb_tpu_torch.exec.scan import AggSpec
+    return [AggSpec("count"), AggSpec("sum", "price"),
+            AggSpec("min", "price"), AggSpec("max", "price")]
+
+
 def phase_floats(dev):
     """The float series path at full width, each call against numpy."""
     from fractions import Fraction
 
-    from knoxdb_tpu_torch.encode.schemes import Scheme
     from knoxdb_tpu_torch.exec import groupby as GB
     from knoxdb_tpu_torch.exec.device import DeviceSegment
-    from knoxdb_tpu_torch.exec.scan import AggSpec, SegmentScanner
-    from knoxdb_tpu_torch.query import filter as Q
-    from knoxdb_tpu_torch.types import FilterMode
+    from knoxdb_tpu_torch.exec.scan import SegmentScanner
 
     sch, data, seg, t_build = _cfg6f_segment(PACKS_SMALL)
     sc = SegmentScanner(DeviceSegment(seg, dev))
@@ -955,14 +1037,9 @@ def phase_floats(dev):
           f"equal to numpy, float sums within {worst:.2f} eps * sum|v| of "
           f"the exact sums (limit 64); launches {launches}")
 
-    def rng_tree(lo, hi):
-        return Q.leaf(Q.Filter(sch.field("price"), FilterMode.RANGE,
-                               (lo, hi))).optimize()
-
-    aggs = [AggSpec("count"), AggSpec("sum", "price"),
-            AggSpec("min", "price"), AggSpec("max", "price")]
+    aggs = _price_aggs()
     res, launches = run_path(
-        lambda: sc.scan(rng_tree(PRICE_LO, PRICE_HI), aggs))
+        lambda: sc.scan(_price_tree(sch, PRICE_LO, PRICE_HI), aggs))
     need(launches, ("range_mask_count", "masked_plane_popcounts"),
          "config6f price RANGE")
     price = data["price"]
@@ -981,7 +1058,8 @@ def phase_floats(dev):
           f"once; exact vs numpy; launches {launches}")
 
     res, launches = run_path(
-        lambda: sc.scan(rng_tree(PROJ_LO, PROJ_HI), [], project=["price"]))
+        lambda: sc.scan(_price_tree(sch, PROJ_LO, PROJ_HI), [],
+                        project=["price"]))
     need(launches, ("range_mask_count",), "config6f project price")
     rows = np.flatnonzero((price >= PROJ_LO) & (price <= PROJ_HI))
     if not (np.array_equal(res.row_ids, rows.astype(np.uint64))
@@ -995,9 +1073,9 @@ def phase_floats(dev):
         "series_scan floats": lambda i: sc.series_scan(None, "ts", KINDS6F,
                                                        plans[i % 2]),
         "price RANGE": lambda i: sc.scan(
-            rng_tree(PRICE_LO + (i % 2), PRICE_HI), aggs),
+            _price_tree(sch, PRICE_LO + (i % 2), PRICE_HI), aggs),
         "project price": lambda i: sc.scan(
-            rng_tree(PROJ_LO + (i % 2), PROJ_HI + (i % 2)), [],
+            _price_tree(sch, PROJ_LO + (i % 2), PROJ_HI + (i % 2)), [],
             project=["price"])}
     return calls
 
@@ -1773,6 +1851,25 @@ def _cfg4_key(data, field, r: int) -> int:
     return int(data[field][r])
 
 
+B_LO4, B_HI4 = N_PACKS // 4, 3 * N_PACKS // 4 - 1
+
+
+def _cfg4_big_query(sch):
+    """A RANGE leaf over config #4's wide column, (B_LO4 * 2^70, B_HI4 *
+    2^70 - k), with count and sum(big): the bounds relate to each pack's
+    python-int base on the host, the ladder and the popcount kernel run on
+    the 64 pack-relative planes. Returns (tree(k=0), aggs)."""
+    from knoxdb_tpu_torch.exec.scan import AggSpec
+    from knoxdb_tpu_torch.query.filter import Filter, leaf
+    from knoxdb_tpu_torch.types import FilterMode
+
+    def big_tree(k=0):
+        return leaf(Filter(sch.field("big"), FilterMode.RANGE,
+                           (B_LO4 << 70, (B_HI4 << 70) - k))).optimize()
+
+    return big_tree, [AggSpec("count"), AggSpec("sum", "big")]
+
+
 def phase_config4(dev):
     """segment_topk(val LT 50000, order, 100, desc, project=id) ordered by
     big and by val (the bit descent) and by id (the fallback): the keys
@@ -1813,35 +1910,50 @@ def phase_config4(dev):
               f"): {seg.nrows_total} rows, {int(m.sum())} pass val LT 50000, "
               f"top 100 desc: keys and ids exact vs numpy (first key "
               f"{keys[0]}); host build {t_build:.2f} s; launches {launches}")
-    # a RANGE leaf over the wide column with count and sum(big): the bounds
-    # relate to each pack's python-int base on the host, the ladder and
-    # the popcount kernel run on the 64 pack-relative planes
-    from knoxdb_tpu_torch.exec.scan import AggSpec
-    from knoxdb_tpu_torch.query.filter import Filter, leaf
-    from knoxdb_tpu_torch.types import FilterMode
-    b_lo, b_hi = N_PACKS // 4, 3 * N_PACKS // 4 - 1
-
-    def big_tree(k=0):
-        return leaf(Filter(sch.field("big"), FilterMode.RANGE,
-                           (b_lo << 70, (b_hi << 70) - k))).optimize()
-
-    big_aggs = [AggSpec("count"), AggSpec("sum", "big")]
+    big_tree, big_aggs = _cfg4_big_query(sch)
     res, launches = run_path(lambda: sc.scan(big_tree(), big_aggs))
     need(launches, ("range_mask_count", "masked_plane_popcounts"),
          "config4 big RANGE")
     block, x = np.arange(seg.nrows_total) // PACK_SIZE, data["x"]
-    mb = ((block > b_lo) & (block < b_hi)) | ((block == b_lo) & (x >= 0)) \
-        | ((block == b_hi) & (x <= 0))
+    mb = ((block > B_LO4) & (block < B_HI4)) | ((block == B_LO4) & (x >= 0)) \
+        | ((block == B_HI4) & (x <= 0))
     want = {("count", ""): int(mb.sum()),
             ("sum", "big"): (_isum(block[mb]) << 70) + (_isum(x[mb]) << 9)}
     if res.count != int(mb.sum()) or res.aggs != want:
         raise AssertionError(f"config4 big RANGE: {res.count} {res.aggs} != "
                              f"{want}")
-    print(f"phase 4 main path config4 scan(big RANGE ({b_lo} * 2^70, {b_hi} "
+    print(f"phase 4 main path config4 scan(big RANGE ({B_LO4} * 2^70, {B_HI4} "
           f"* 2^70), count, sum(big)) over the wide BITPACK column: count="
           f"{res.count} sum={res.aggs[('sum', 'big')]}; exact vs python "
           f"ints; launches {launches}")
     return sc, tree, (big_tree, big_aggs)
+
+
+# every launch of 5a and 5b on the main paths that run them
+SPLIT_PATHS = (("range_mask_count", "config2 OR subtree"),
+               ("range_mask_count", "config2 fee RANGE"),
+               ("masked_plane_popcounts", "config2 fee RANGE"),
+               ("range_mask_count", "config4 big RANGE"),
+               ("masked_plane_popcounts", "config4 big RANGE"),
+               ("range_mask_count", "config6f price RANGE"),
+               ("masked_plane_popcounts", "config6f price RANGE"))
+SPLIT_LAUNCHES = {"range_mask_count": 5, "masked_plane_popcounts": 3}
+
+
+def split_path_ops(calls):
+    """The operands that the calls (label -> call()) of SPLIT_PATHS hand
+    5a and 5b, captured from the wrappers: name -> [(label, args), ...],
+    SPLIT_LAUNCHES of them: config #2's OR subtree runs 5a on val and bal,
+    each other path one launch of each kernel it names."""
+    from knoxdb_tpu_torch.ops import scan_kernels as SK
+    ops = {k: [] for k in SPLIT_LAUNCHES}
+    for kname, label in SPLIT_PATHS:
+        ops[kname] += [(label, a) for a in _capture(SK, kname, calls[label],
+                                                    every=True)]
+    got = {k: [q for q, _a in v] for k, v in ops.items()}
+    if {k: len(v) for k, v in got.items()} != SPLIT_LAUNCHES:
+        raise AssertionError(f"split-kernel launches of the paths: {got}")
+    return ops
 
 
 def _split_need(name, args):
@@ -1860,13 +1972,13 @@ def _split_need(name, args):
 def time_split_kernels(var1, path_ops, launches, stream, flush):
     """Kernels 5a and 5b. First on every set of operands that the main
     paths handed them (path_ops: name -> [(query, args), ...]): kernel
-    = plain bit for bit, then warm, L2-flushed and plain times and the
-    bound from those operands; each kernel's record carries the numbers of
-    its first set and lists the others. Then on config #1's val planes
-    beside the one-leaf kernel, and all three at the permuted view of a
-    pack-major copy of the same planes. var1: the operands the main path
-    gave fused_range_sum_masked. Returns the records and the layout
-    table."""
+    = plain bit for bit, then warm, L2-flushed (fill), L2-evicted (read)
+    and plain times and the bound from those operands; each kernel's
+    record carries the numbers of its first set and lists the others.
+    Then on config #1's val planes beside the one-leaf kernel, and all
+    three at the permuted view of a pack-major copy of the same planes.
+    var1: the operands the main path gave fused_range_sum_masked. Returns
+    the records and the layout table."""
     import torch
     from knoxdb_tpu_torch.ops import scan_kernels as SK
 
@@ -1886,11 +1998,14 @@ def time_split_kernels(var1, path_ops, launches, stream, flush):
             ms = _event_ms(lambda i: kf(*args))
             fl = _event_ms(lambda i: kf(*args),
                            before=lambda i: flush.fill_(i))
+            cold = _event_ms(lambda i: kf(*args),
+                             before=lambda i: flush.sum())
             mask = args[4] if name == "range_mask_count" else args[1]
             at.append({
                 "query": query,
                 "planes": list(args[0].shape), "mask_in": mask is not None,
                 "max_abs_err": err, "ms": ms, "ms_l2_flushed": fl,
+                "ms_l2_read_evicted": cold,
                 "plain_ms": _event_ms(lambda i: ref(*args), iters=20),
                 "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by,
                 "bound_stream_ms": nbytes / stream * 1e3,
@@ -1902,12 +2017,14 @@ def time_split_kernels(var1, path_ops, launches, stream, flush):
             "replaces": _REPLACES[name], "launches": launches[name],
             **at[0], "library_ms": None, "other_operands": at[1:]}
         print(f"phase 5 {name} on its main paths' operands, kernel = "
-              f"plain bit for bit; ms warm / L2 flushed / plain / bound: "
+              f"plain bit for bit; ms warm / L2 flushed / L2 read-evicted / "
+              f"plain / bound: "
               + "; ".join(
                   f"{r['query']} planes {r['planes']}"
                   f"{' under a mask' if r['mask_in'] else ''}: "
-                  f"{r['ms']:.4f} / {r['ms_l2_flushed']:.4f} / "
-                  f"{r['plain_ms']:.4f} / {r['bound_ms']:.4f}" for r in at))
+                  f"{r['ms']:.5f} / {r['ms_l2_flushed']:.5f} / "
+                  f"{r['ms_l2_read_evicted']:.5f} / {r['plain_ms']:.4f} / "
+                  f"{r['bound_ms']:.5f}" for r in at))
 
     planes, lo_b, hi_b, flags, mask_in, width = var1
     pk = planes.permute(1, 0, 2).contiguous().permute(1, 0, 2)
@@ -2067,11 +2184,9 @@ def _ptxas_of(log, names):
     return {k: "; ".join(v) for k, v in out.items()}
 
 
-def _sass_atomics(so_path):
-    """Counts of the shared / global atomic instructions in a library's
-    SASS (cuobjdump -sass), or None where the toolkit has no cuobjdump."""
-    import collections
-    import re
+def _sass(so_path):
+    """A library's SASS (cuobjdump -sass), or None where the toolkit has no
+    cuobjdump."""
     import shutil
     from pathlib import Path
     from knoxdb_tpu_torch.ops import cuda_build
@@ -2079,10 +2194,36 @@ def _sass_atomics(so_path):
     tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
     if not tool:
         return None
-    r = subprocess.run([tool, "-sass", so_path], capture_output=True,
-                       text=True, timeout=120)
-    return dict(collections.Counter(re.findall(
-        r"\b((?:ATOMS|ATOMG|ATOM|REDG|RED)\.[A-Z0-9_.]+)", r.stdout)))
+    return subprocess.run([tool, "-sass", so_path], capture_output=True,
+                          text=True, timeout=120).stdout
+
+
+def _sass_atomics(so_path):
+    """Counts of the shared / global atomic instructions in a library's
+    SASS, or None without cuobjdump."""
+    import collections
+    import re
+    text = _sass(so_path)
+    return None if text is None else dict(collections.Counter(re.findall(
+        r"\b((?:ATOMS|ATOMG|ATOM|REDG|RED)\.[A-Z0-9_.]+)", text)))
+
+
+def _sass_loads(so_path, names):
+    """Per kernel whose mangled name holds one of `names`, the counts of its
+    global load instructions by form (LDG.E.128 = 16 bytes a thread,
+    LDG.E = 4), or None without cuobjdump."""
+    import collections
+    import re
+    text = _sass(so_path)
+    if text is None:
+        return None
+    out = {}
+    for part in text.split("Function : ")[1:]:
+        fname = part.split(None, 1)[0]
+        if any(n in fname for n in names):
+            out[fname] = dict(collections.Counter(re.findall(
+                r"\b(LDG\.E(?:\.[A-Z0-9_]+)*)", part)))
+    return out
 
 
 def time_kernels_1_4(cases, flush, sms):
@@ -2099,6 +2240,8 @@ def time_kernels_1_4(cases, flush, sms):
         r = {"kernel": kname, "warm_ms": _event_ms(f)}
         if scan:
             r["l2_flushed_ms"] = _event_ms(f, before=lambda i: flush.fill_(i))
+            r["l2_read_evicted_ms"] = _event_ms(f,
+                                                before=lambda i: flush.sum())
         else:
             gid, G = sets[0][0], sets[0][-1]
             r["plan"] = GK.group_tile_plan(gid.numel(), G,
@@ -2143,6 +2286,15 @@ def main() -> int:
         if "group_kernels" in so or "scan_kernels" in so:
             sass[so.rsplit("/", 1)[-1]] = _sass_atomics(so)
     print(f"phase 2 SASS atomics (cuobjdump -sass): {sass}")
+    split_names = ("range_mask_count_kernel", "masked_popcounts_kernel")
+    scan_so = next(so for so in cuda_build.build_info["library"].split(", ")
+                   if "scan_kernels" in so)
+    split_build = {"ptxas": _ptxas_of(cuda_build.build_info["log"],
+                                      split_names),
+                   "sass_loads": _sass_loads(scan_so, split_names)}
+    print(f"phase 2 split kernels 5a / 5b (vector and scalar forms, D planes "
+          f"in flight): ptxas {split_build['ptxas']}; SASS global loads "
+          f"{split_build['sass_loads']}")
 
     phase_kernels_vs_plain(dev)
     phase_split_kernels_vs_plain(dev)
@@ -2423,23 +2575,15 @@ def main() -> int:
     print(f"phase 5 stages config3_minmax: profiled: "
           f"{stages['config3_minmax']['profile']}")
 
-    # the operands the main paths hand 5a and 5b: every launch of config
-    # #2's OR-subtree query and fee RANGE and of config #4's big RANGE
-    path_ops = {"range_mask_count": [], "masked_plane_popcounts": []}
-    q2 = {q: (lambda q=q: sc2.scan(queries2[q][0](0), queries2[q][1]))
-          for q in ("OR subtree", "fee RANGE")}
-    for kname, label, call in (
-            ("range_mask_count", "config2 OR subtree", q2["OR subtree"]),
-            ("range_mask_count", "config2 fee RANGE", q2["fee RANGE"]),
-            ("masked_plane_popcounts", "config2 fee RANGE", q2["fee RANGE"]),
-            *((k, "config4 big RANGE",
-               lambda: sc4.scan(big_query4[0](), big_query4[1]))
-              for k in path_ops)):
-        path_ops[kname] += [(label, a)
-                            for a in _capture(SK, kname, call, every=True)]
-    nops5 = {k: [q for q, _a in v] for k, v in path_ops.items()}
-    if [len(v) for v in nops5.values()] != [4, 2]:
-        raise AssertionError(f"split-kernel launches of the paths: {nops5}")
+    # the operands the main paths hand 5a and 5b
+    path_ops = split_path_ops({
+        "config2 OR subtree": lambda: sc2.scan(
+            queries2["OR subtree"][0](0), queries2["OR subtree"][1]),
+        "config2 fee RANGE": lambda: sc2.scan(
+            queries2["fee RANGE"][0](0), queries2["fee RANGE"][1]),
+        "config4 big RANGE": lambda: sc4.scan(big_query4[0](),
+                                              big_query4[1]),
+        "config6f price RANGE": lambda: float_calls["price RANGE"](0)})
     split_records, layouts = time_split_kernels(
         variants["fused_range_sum_masked"][0], path_ops, launches_by_kernel,
         stream, flush)
@@ -2491,6 +2635,7 @@ def main() -> int:
                           if ("tree" in k) == (r["name"] in SK.LAUNCHES)}
     stages["kernels_1_4"] = k14
     stages["sass_atomics"] = sass
+    stages["split_build"] = split_build
     stages["ptxas"] = kernels_ptxas
     _mark("phase 5 kernels #1-#4")
     probe = time_sort_probe(kops, pops, probe_ns, stream)

@@ -10,8 +10,8 @@
 // for every leaf and every sum that does not ride the fused kernel:
 //   k_ladder_only -> knox_range_mask_count       (range_mask_count_kernel)
 //   k_pcnt_only   -> knox_masked_plane_popcounts (masked_popcounts_kernel)
-// Each is its own __global__ entry; the ladder and the per-plane popcount
-// are __device__ helpers shared with the fused kernel.
+// Each is its own __global__ entry with a body of its own, a pack split
+// over a thread block cluster (see the note before range_mask_count_kernel).
 //
 // Plane layout: every entry addresses word j of plane p of pack k at
 // planes[p * plane_stride + k * pack_stride + j] (strides in words). The
@@ -62,8 +62,11 @@
 // Integer reductions: per-thread __popc, a warp __reduce_add_sync, then
 // integer atomics in shared memory, so every result is deterministic.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 #define KNOX_MAX_FIELDS 8
 #define KNOX_MAX_LEAVES 8
@@ -72,6 +75,11 @@
 #define KNOX_NFLAGS 8
 #define KNOX_MM_COLS 8
 #define KNOX_MAX_THREADS 256
+// the split kernels' geometry (split_geom) and planes in flight per thread
+#define KNOX_MAX_CLUSTER 8           // CTAs per pack (a portable cluster)
+#define KNOX_SPLIT_THREADS 512       // threads (quads of 4 words) per CTA
+#define KNOX_LADDER_D 2              // 5a
+#define KNOX_PCNT_D 4                // 5b
 
 // flag word columns, as written by range_consts (ops/scan_kernels.py)
 #define F_LO_LT_ALL 0
@@ -98,19 +106,18 @@ struct TreeParams {
     int nleaf, nspec, P, W;
 };
 
-// The plane loops are unrolled by hand, each kernel by its own factor. The
-// kernels wait on loads, and a pack's one block has too few threads to
-// cover the latency unless each thread keeps the words of several planes
-// in flight; nvcc's own choice flips with the address form (it unrolled
-// the fused kernel's ladder for the plane-major form only: 0.0224 ms on the
-// benchmark's 16-plane column at 256 packs, against 0.037 ms once the pack
-// offset came from a stride). Measured on an H100, ms with the planes warm
-// in L2 / with L2 flushed, 8 words per thread: the fused kernel's ladder
-// x4 0.0218 / 0.0339 (x8 0.0215 / 0.0357, none 0.0256 / 0.0369; 107
-// registers, no spills); the ladder-only kernel is fastest NOT unrolled,
-// 0.0202 / 0.0328 (x4 0.0263 / 0.0458, x8 0.0320 / 0.0537; 64 registers);
+// The fused kernel's plane loops are unrolled by hand. The kernel waits on
+// loads, and a pack's one block has too few threads to cover the latency
+// unless each thread keeps the words of several planes in flight; nvcc's
+// own choice flips with the address form (it unrolled the ladder for the
+// plane-major form only: 0.0224 ms on the benchmark's 16-plane column at
+// 256 packs, against 0.037 ms once the pack offset came from a stride).
+// Measured on NVIDIA H100 80GB HBM3, 700.00 W, ms with the planes warm in
+// L2 / with L2 flushed, 8 words per thread: the ladder x4 0.0218 / 0.0339
+// (x8 0.0215 / 0.0357, none 0.0256 / 0.0369; 107 registers, no spills);
 // the popcount loop x8 0.0170 / 0.0325 (none 0.0246 / 0.0493; 40
-// registers). At 16 words per thread the fused ladder keeps two planes.
+// registers; measured in 5b's former body, which shared it). At 16 words
+// per thread the ladder keeps two planes.
 
 // Block-wide integer sum; every thread calls it with its value.
 __device__ __forceinline__ int block_sum(unsigned v, int* slot) {
@@ -302,69 +309,261 @@ fused_tree_kernel(const TreeParams prm) {
 }
 
 
+// ---- the split kernels 5a / 5b: one pack over a thread block cluster ----
+//
+// CTA `rank` of a pack's S CTAs owns q quads of four words: in the vector
+// form the words 4 * (rank * q + t) .. + 3 of thread t, read as one 16-byte
+// load; in the scalar form (W % 4 != 0, or a base or stride that is not
+// 16-byte aligned) the words rank * 4q + t + k * q, k = 0..3, each a
+// coalesced 4-byte load. A thread keeps D planes' loads in flight in
+// registers (a ring of D quads), its ladder state and mask words in
+// registers, and no block barrier runs inside the plane loop. Counts go
+// __popc -> warp __reduce_add_sync -> one shared atomic per warp; where
+// S > 1 the pack's CTAs form a thread block cluster and add their partials
+// into rank 0 through distributed shared memory. Every output is written
+// once, by one CTA.
+//
+// What bounds them: bytes (each plane word is read once for a few integer
+// operations), and a fixed cost of about 6 us a launch, a quarter of the
+// time on the main paths' 16-32-plane columns. Measured on NVIDIA H100 80GB
+// HBM3, 700.00 W, in turns on the main paths' operands (ab_kernels.py split,
+// L2 flushed, 5a on config #4's 64 planes x 256 packs): the bodies of commit
+// 68506b1 (a block of 256 threads per pack, 8 scalar words a thread) took
+// 0.0900 ms, 12-46% of the HBM bound across the operand sets; this body with
+// 64, 128 and 256 quads per CTA (clusters of 8, 4 and 2 at W = 2048) 0.1131,
+// 0.0895 and 0.0639, and with 512 (one CTA per pack) 0.0637 launched as a
+// cluster and 0.0628 without the attribute: a cluster launch costs about 1.5
+// us even for one CTA (0.0081 against 0.0065 at width 0). So W <= 2048 runs
+// one CTA of 512 threads per pack as a plain launch, and clusters run where
+// W > 2048. D mattered little (5a D = 4 and 8: +3% and +4%; 5b D = 2 and 8:
+// +2% and +3%). 5a 0.0241 against 0.0317 on config #2's 16 planes; 5b 0.0639
+// against 0.0881. ptxas: 5a 54 registers (16-byte form) / 61 (scalar), 5b 32
+// / 40, no spills.
+
+// A thread's four words of one row (a plane of a pack, or a mask row),
+// read only where `live`: VEC one 16-byte load of words j..j+3, else the
+// words j + k * step that lie below W (the rest read as 0).
+template <bool VEC>
+__device__ __forceinline__ uint4 load_quad(const uint32_t* row, int j,
+                                           int step, int W, bool live) {
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (!live) return v;
+    if (VEC) return __ldg(reinterpret_cast<const uint4*>(row + j));
+    if (j < W) v.x = __ldg(row + j);
+    if (j + step < W) v.y = __ldg(row + j + step);
+    if (j + 2 * step < W) v.z = __ldg(row + j + 2 * step);
+    if (j + 3 * step < W) v.w = __ldg(row + j + 3 * step);
+    return v;
+}
+
+// All ones on the thread's words that lie below W (no incoming mask).
+template <bool VEC>
+__device__ __forceinline__ uint4 all_rows_quad(int j, int step, int W,
+                                               bool live) {
+    if (!live) return make_uint4(0u, 0u, 0u, 0u);
+    if (VEC) return make_uint4(~0u, ~0u, ~0u, ~0u);
+    return make_uint4(j < W ? ~0u : 0u, j + step < W ? ~0u : 0u,
+                      j + 2 * step < W ? ~0u : 0u,
+                      j + 3 * step < W ? ~0u : 0u);
+}
+
+__device__ __forceinline__ unsigned popc_quad(uint4 v) {
+    return __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
+}
+
+// One warp's value into a shared counter: one atomic per warp.
+__device__ __forceinline__ void warp_add(unsigned v, int* slot) {
+    v = __reduce_add_sync(0xffffffffu, v);
+    if ((threadIdx.x & 31) == 0 && v) atomicAdd(slot, (int)v);
+}
+
+// One plane of the MSB-down range ladder on one word.
+__device__ __forceinline__ void ladder_word(uint32_t x, uint32_t cl,
+                                            uint32_t ch, uint32_t& lt_lo,
+                                            uint32_t& eq_lo, uint32_t& lt_hi,
+                                            uint32_t& eq_hi) {
+    lt_lo |= eq_lo & ~x & cl;
+    eq_lo &= ~(x ^ cl);
+    lt_hi |= eq_hi & ~x & ch;
+    eq_hi &= ~(x ^ ch);
+}
+
+// The thread's place in its pack: the first word j, the step between its
+// words, and whether it owns any word.
+struct SplitSlot {
+    int pack, rank, j, step;
+    bool live;
+};
+
+template <bool VEC>
+__device__ __forceinline__ SplitSlot split_slot(int S, int q, int W) {
+    SplitSlot s;
+    s.pack = blockIdx.x / S;
+    s.rank = blockIdx.x % S;          // the CTA's rank in its (S, 1, 1) cluster
+    const int t = threadIdx.x;
+    s.j = VEC ? (s.rank * q + t) * 4 : s.rank * 4 * q + t;
+    s.step = VEC ? 1 : q;
+    s.live = t < q && s.j < W;
+    return s;
+}
+
 // probes/ps_variants.py k_ladder_only: one column's range ladder AND an
 // optional incoming mask (null = all rows) -> the mask and its count.
-template <int WPT>
-__global__ void __launch_bounds__(KNOX_MAX_THREADS)
+template <bool VEC>
+__global__ void __launch_bounds__(KNOX_SPLIT_THREADS)
 range_mask_count_kernel(const uint32_t* planes, int w, size_t plane_stride,
                         size_t pack_stride, const uint32_t* lo_bits,
                         const uint32_t* hi_bits, const uint32_t* flags,
                         const uint32_t* mask_in, uint32_t* mask_out,
-                        long long* cnt, int W) {
-    const int tid = threadIdx.x;
-    const int nthr = blockDim.x;
-    const size_t base = (size_t)blockIdx.x * W;
-    __shared__ int s_sum;
-    uint32_t m[WPT];
-#pragma unroll
-    for (int k = 0; k < WPT; ++k) {
-        const int j = tid + k * nthr;
-        m[k] = j < W ? (mask_in ? mask_in[base + j] : ~0u) : 0u;
+                        long long* cnt, int W, int q) {
+    constexpr int D = KNOX_LADDER_D;
+    cg::cluster_group cluster = cg::this_cluster();
+    const int S = (int)cluster.num_blocks();
+    const SplitSlot s = split_slot<VEC>(S, q, W);
+    __shared__ uint32_t s_lo[KNOX_MAX_WIDTH], s_hi[KNOX_MAX_WIDTH];
+    __shared__ int s_cnt;
+    const size_t cbase = (size_t)s.pack * (w > 1 ? w : 1);
+    for (int i = threadIdx.x; i < w; i += blockDim.x) {
+        s_lo[i] = __ldg(lo_bits + cbase + i);
+        s_hi[i] = __ldg(hi_bits + cbase + i);
     }
-    const size_t cbase = (size_t)blockIdx.x * (w > 1 ? w : 1);
-    range_ladder<WPT, 1>(planes + (size_t)blockIdx.x * pack_stride, plane_stride,
-                      w, lo_bits + cbase, hi_bits + cbase,
-                      flags + (size_t)blockIdx.x * KNOX_NFLAGS, W, m);
-    unsigned c = 0;
+    if (threadIdx.x == 0) s_cnt = 0;
+
+    const uint32_t* pl = planes + (size_t)s.pack * pack_stride;
+    const size_t row = (size_t)s.pack * W;
+    // the ring: planes w-1 .. w-D in flight before the barrier
+    uint4 ring[D];
 #pragma unroll
-    for (int k = 0; k < WPT; ++k) {
-        const int j = tid + k * nthr;
-        if (j < W) {
-            mask_out[base + j] = m[k];
-            c += __popc(m[k]);
+    for (int d = 0; d < D; ++d)
+        ring[d] = load_quad<VEC>(
+            pl + (size_t)max(w - 1 - d, 0) * plane_stride, s.j, s.step, W,
+            s.live && w - 1 - d >= 0);
+    const uint4 m_in = mask_in
+        ? load_quad<VEC>(mask_in + row, s.j, s.step, W, s.live)
+        : all_rows_quad<VEC>(s.j, s.step, W, s.live);
+    __syncthreads();
+
+    uint32_t lt_lo[4] = {0u, 0u, 0u, 0u}, eq_lo[4] = {~0u, ~0u, ~0u, ~0u};
+    uint32_t lt_hi[4] = {0u, 0u, 0u, 0u}, eq_hi[4] = {~0u, ~0u, ~0u, ~0u};
+    for (int p0 = w - 1; p0 >= 0; p0 -= D) {
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+            const int p = p0 - d;
+            if (p >= 0) {
+                const uint4 x = ring[d];
+                const int next = p - D;
+                ring[d] = load_quad<VEC>(
+                    pl + (size_t)max(next, 0) * plane_stride, s.j, s.step, W,
+                    s.live && next >= 0);
+                const uint32_t xs[4] = {x.x, x.y, x.z, x.w};
+                const uint32_t cl = s_lo[p], ch = s_hi[p];
+#pragma unroll
+                for (int k = 0; k < 4; ++k)
+                    ladder_word(xs[k], cl, ch, lt_lo[k], eq_lo[k], lt_hi[k],
+                                eq_hi[k]);
+            }
         }
     }
-    const int total = block_sum(c, &s_sum);
-    if (tid == 0) cnt[blockIdx.x] = total;
+
+    const uint32_t* fl = flags + (size_t)s.pack * KNOX_NFLAGS;
+    const uint32_t f_lo_lt_all = __ldg(fl + F_LO_LT_ALL);
+    const uint32_t f_lo_ge_none = __ldg(fl + F_LO_GE_NONE);
+    const uint32_t f_hi_in = __ldg(fl + F_HI_IN);
+    const uint32_t f_hi_ge_none = __ldg(fl + F_HI_GE_NONE);
+    const uint32_t f_hi_lt_all = __ldg(fl + F_HI_LT_ALL);
+    uint32_t m[4] = {m_in.x, m_in.y, m_in.z, m_in.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+        const uint32_t ge_lo = ~((lt_lo[k] | f_lo_lt_all) & ~f_lo_ge_none);
+        const uint32_t le_hi = (lt_hi[k] | (eq_hi[k] & f_hi_in) | f_hi_lt_all)
+            & ~f_hi_ge_none;
+        m[k] &= ge_lo & le_hi;
+    }
+    if (s.live) {
+        if (VEC) {
+            *reinterpret_cast<uint4*>(mask_out + row + s.j) =
+                make_uint4(m[0], m[1], m[2], m[3]);
+        } else {
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+                if (s.j + k * s.step < W)
+                    mask_out[row + s.j + k * s.step] = m[k];
+        }
+    }
+    warp_add(popc_quad(make_uint4(m[0], m[1], m[2], m[3])), &s_cnt);
+
+    cluster.sync();                  // every CTA's s_cnt is complete
+    if (s.rank == 0 && threadIdx.x == 0) {
+        long long total = 0;
+        for (int r = 0; r < S; ++r)
+            total += *cluster.map_shared_rank(&s_cnt, r);
+        cnt[s.pack] = total;
+    }
+    cluster.sync();                  // no CTA leaves while rank 0 reads it
 }
 
 // probes/ps_variants.py k_pcnt_only: the count of a mask that arrives from
 // outside and the per-plane popcounts of one column's planes under it.
-template <int WPT>
-__global__ void __launch_bounds__(KNOX_MAX_THREADS)
+template <bool VEC>
+__global__ void __launch_bounds__(KNOX_SPLIT_THREADS)
 masked_popcounts_kernel(const uint32_t* planes, int w, size_t plane_stride,
                         size_t pack_stride, const uint32_t* mask,
-                        long long* pcnt, long long* cnt, int W) {
-    const int tid = threadIdx.x;
-    const int nthr = blockDim.x;
-    const size_t base = (size_t)blockIdx.x * W;
+                        long long* pcnt, long long* cnt, int W, int q) {
+    constexpr int D = KNOX_PCNT_D;
+    cg::cluster_group cluster = cg::this_cluster();
+    const int S = (int)cluster.num_blocks();
+    const SplitSlot s = split_slot<VEC>(S, q, W);
     __shared__ int s_acc[KNOX_MAX_WIDTH];
-    __shared__ int s_sum;
-    uint32_t m[WPT];
-    unsigned c = 0;
+    __shared__ int s_cnt;
+    for (int i = threadIdx.x; i < w; i += blockDim.x) s_acc[i] = 0;
+    if (threadIdx.x == 0) s_cnt = 0;
+
+    const uint32_t* pl = planes + (size_t)s.pack * pack_stride;
+    uint4 ring[D];
 #pragma unroll
-    for (int k = 0; k < WPT; ++k) {
-        const int j = tid + k * nthr;
-        m[k] = j < W ? mask[base + j] : 0u;
-        c += __popc(m[k]);
+    for (int d = 0; d < D; ++d)
+        ring[d] = load_quad<VEC>(pl + (size_t)min(d, w) * plane_stride, s.j,
+                                 s.step, W, s.live && d < w);
+    const uint4 m = load_quad<VEC>(mask + (size_t)s.pack * W, s.j, s.step, W,
+                                   s.live);
+    __syncthreads();
+    warp_add(popc_quad(m), &s_cnt);
+
+    for (int p0 = 0; p0 < w; p0 += D) {
+#pragma unroll
+        for (int d = 0; d < D; ++d) {
+            const int p = p0 + d;
+            if (p < w) {
+                const uint4 x = ring[d];
+                const int next = p + D;
+                ring[d] = load_quad<VEC>(
+                    pl + (size_t)min(next, w) * plane_stride, s.j, s.step, W,
+                    s.live && next < w);
+                warp_add(__popc(x.x & m.x) + __popc(x.y & m.y)
+                         + __popc(x.z & m.z) + __popc(x.w & m.w), &s_acc[p]);
+            }
+        }
     }
-    const int total = block_sum(c, &s_sum);
-    if (tid == 0) cnt[blockIdx.x] = total;
-    plane_popcounts<WPT>(planes + (size_t)blockIdx.x * pack_stride,
-                         plane_stride, w, W, m, s_acc);
-    const int w1 = w > 1 ? w : 1;
-    long long* out = pcnt + (size_t)blockIdx.x * w1;
-    for (int i = tid; i < w1; i += nthr) out[i] = i < w ? s_acc[i] : 0;
+
+    cluster.sync();                  // every CTA's partials are complete
+    if (s.rank == 0) {
+        const int w1 = w > 1 ? w : 1;
+        long long* out = pcnt + (size_t)s.pack * w1;
+        for (int i = threadIdx.x; i < w1; i += blockDim.x) {
+            long long v = 0;
+            if (i < w)
+                for (int r = 0; r < S; ++r)
+                    v += cluster.map_shared_rank(s_acc, r)[i];
+            out[i] = v;
+        }
+        if (threadIdx.x == 0) {
+            long long total = 0;
+            for (int r = 0; r < S; ++r)
+                total += *cluster.map_shared_rank(&s_cnt, r);
+            cnt[s.pack] = total;
+        }
+    }
+    cluster.sync();                  // no CTA leaves while rank 0 reads it
 }
 
 // threads: one per word up to 256 (at least one warp); WPT words each
@@ -399,6 +598,57 @@ static int launch(const TreeParams& prm, cudaStream_t stream) {
     KNOX_LAUNCH_WPT(fused_tree_kernel, prm.P, prm.W, stream, prm);
     return (int)cudaGetLastError();
 }
+
+// The split kernels' geometry, from W and the operands' alignment alone:
+// S CTAs per pack (a power of two up to 8) of KNOX_SPLIT_THREADS quads each
+// where W allows, threads rounded up to whole warps; the 16-byte form
+// where W % 4 == 0 and every row is 16-byte aligned.
+struct SplitGeom {
+    int S, q, nthr;
+    bool vec;
+};
+
+static bool split_geom(int W, bool aligned, SplitGeom* g) {
+    const int nquad = (W + 3) / 4;
+    int S = 1;
+    while (S < KNOX_MAX_CLUSTER && S * KNOX_SPLIT_THREADS < nquad) S *= 2;
+    g->S = S;
+    g->q = (nquad + S - 1) / S;
+    g->nthr = (g->q + 31) / 32 * 32;
+    g->vec = aligned && W % 4 == 0;
+    return g->nthr <= KNOX_SPLIT_THREADS;
+}
+
+static bool aligned16(const void* p) {
+    return p == nullptr || ((uintptr_t)p & 15u) == 0;
+}
+
+// Launch a split kernel on a grid of P * S CTAs in clusters of (S, 1, 1);
+// S = 1 launches without the cluster attribute, which costs even a cluster
+// of one CTA about 1.5 us a launch (measured, see the note above).
+template <typename... Params, typename... Args>
+static int launch_split(void (*kernel)(Params...), int P, const SplitGeom& g,
+                        cudaStream_t stream, Args... args) {
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)g.S;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3((unsigned)P * (unsigned)g.S, 1, 1);
+    cfg.blockDim = dim3((unsigned)g.nthr, 1, 1);
+    cfg.dynamicSmemBytes = 0;
+    cfg.stream = stream;
+    cfg.attrs = attr;
+    cfg.numAttrs = g.S > 1 ? 1 : 0;
+    const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+    return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+}
+
+// KERNEL in the load form of the geometry g.
+#define KNOX_LAUNCH_SPLIT(KERNEL, P, g, stream, ...)                         \
+    ((g).vec ? launch_split(KERNEL<true>, P, g, stream, __VA_ARGS__)         \
+             : launch_split(KERNEL<false>, P, g, stream, __VA_ARGS__))
 
 extern "C" {
 
@@ -492,17 +742,20 @@ int knox_range_mask_count(const void* planes, int width,
                           const void* flags, const void* mask_in,
                           void* mask_out, void* cnt, int P, int W,
                           void* stream) {
+    SplitGeom g;
     if (width < 0 || width > KNOX_MAX_WIDTH || plane_stride < 0
-        || pack_stride < 0 || P <= 0 || W <= 0)
+        || pack_stride < 0 || P <= 0 || W <= 0
+        || !split_geom(W, plane_stride % 4 == 0 && pack_stride % 4 == 0
+                              && aligned16(planes) && aligned16(mask_in)
+                              && aligned16(mask_out), &g))
         return (int)cudaErrorInvalidValue;
-    cudaStream_t st = (cudaStream_t)stream;
-    KNOX_LAUNCH_WPT(range_mask_count_kernel, P, W, st,
-                    (const uint32_t*)planes, width, (size_t)plane_stride,
-                    (size_t)pack_stride, (const uint32_t*)lo_bits,
-                    (const uint32_t*)hi_bits, (const uint32_t*)flags,
-                    (const uint32_t*)mask_in, (uint32_t*)mask_out,
-                    (long long*)cnt, W);
-    return (int)cudaGetLastError();
+    return KNOX_LAUNCH_SPLIT(
+        range_mask_count_kernel, P, g, (cudaStream_t)stream,
+        (const uint32_t*)planes, width, (size_t)plane_stride,
+        (size_t)pack_stride, (const uint32_t*)lo_bits,
+        (const uint32_t*)hi_bits, (const uint32_t*)flags,
+        (const uint32_t*)mask_in, (uint32_t*)mask_out, (long long*)cnt, W,
+        g.q);
 }
 
 // Per-plane popcounts of one column under mask u32[P, W] -> pcnt
@@ -512,15 +765,16 @@ int knox_masked_plane_popcounts(const void* planes, int width,
                                 long long plane_stride, long long pack_stride,
                                 const void* mask, void* pcnt, void* cnt,
                                 int P, int W, void* stream) {
+    SplitGeom g;
     if (width < 0 || width > KNOX_MAX_WIDTH || plane_stride < 0
-        || pack_stride < 0 || P <= 0 || W <= 0)
+        || pack_stride < 0 || P <= 0 || W <= 0
+        || !split_geom(W, plane_stride % 4 == 0 && pack_stride % 4 == 0
+                              && aligned16(planes) && aligned16(mask), &g))
         return (int)cudaErrorInvalidValue;
-    cudaStream_t st = (cudaStream_t)stream;
-    KNOX_LAUNCH_WPT(masked_popcounts_kernel, P, W, st,
-                    (const uint32_t*)planes, width, (size_t)plane_stride,
-                    (size_t)pack_stride, (const uint32_t*)mask,
-                    (long long*)pcnt, (long long*)cnt, W);
-    return (int)cudaGetLastError();
+    return KNOX_LAUNCH_SPLIT(
+        masked_popcounts_kernel, P, g, (cudaStream_t)stream,
+        (const uint32_t*)planes, width, (size_t)plane_stride,
+        (size_t)pack_stride, (const uint32_t*)mask, (long long*)pcnt,
+        (long long*)cnt, W, g.q);
 }
-
 }  // extern "C"

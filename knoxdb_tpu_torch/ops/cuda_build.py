@@ -48,7 +48,7 @@ _SIGNATURES = {
 
 
 _lib = None
-build_info: dict = {}     # seconds, library paths and nvcc's -Xptxas -v log
+build_info: dict = {}     # seconds, library paths and nvcc's -Xptxas -v logs
 
 
 def _nvcc() -> str:
@@ -79,20 +79,24 @@ def _build() -> list[Path]:
             jobs.append((so, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
-    logs, failed = [], []
+    failed = []
     for so, tmp, proc in jobs:
         out, _ = proc.communicate()
-        logs.append(f"[{so.name}]\n{out.strip()}")
         if proc.returncode != 0:
-            failed.append(f"{so.name}: nvcc exit {proc.returncode}")
+            failed.append(f"{so.name}: nvcc exit {proc.returncode}\n{out}")
         else:
+            so.with_suffix(".log").write_text(out.strip())
             os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    # each library's nvcc log is kept beside it, so a cached build reports
+    # ptxas' lines too
+    logs = [f"[{so.name}]\n" + (so.with_suffix(".log").read_text()
+                                if so.with_suffix(".log").exists() else "")
+            for so in libs]
     build_info.update(seconds=time.perf_counter() - t0,
                       library=", ".join(str(s) for s in libs),
-                      log="\n".join(logs) if jobs else "(cached)")
-    if failed:
-        raise RuntimeError("nvcc failed: " + "; ".join(failed) + "\n"
-                           + build_info["log"])
+                      log="\n".join(logs))
     return libs
 
 

@@ -8,7 +8,8 @@ import numpy as np
 
 from .ops import scan_kernels as SK
 
-__all__ = ["random_tree_case"]
+__all__ = ["random_tree_case", "misaligned_copy", "split_layouts",
+           "split_masks"]
 
 
 def _rand_u32(rng, shape) -> np.ndarray:
@@ -62,3 +63,41 @@ def random_tree_case(rng, fwidths, P: int, W: int, nleaf: int,
         mask_in[-1] = 0
     return (planes_list, leaf_ops, tuple(leaf_field), mask_in,
             tuple(fwidths), tuple(agg_specs))
+
+
+def misaligned_copy(t):
+    """A contiguous copy of the int32 tensor t whose data starts one word
+    (4 bytes) past a 16-byte boundary."""
+    import torch
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def split_layouts(planes):
+    """The planes int32[w1, P, W] in the four layouts the split scan kernels
+    take: plane-major, the permuted view of a pack-major [P, w1, W] tensor,
+    a misaligned copy, and a view of [w1, P, W + 1] (pack stride W + 1).
+    The last two run the kernels' scalar form, the first two their 16-byte
+    form where W % 4 == 0."""
+    import torch
+    w1, P, W = planes.shape
+    odd = torch.empty((w1, P, W + 1), dtype=planes.dtype,
+                      device=planes.device)[..., :W]
+    odd.copy_(planes)
+    return {"plane-major": planes,
+            "pack-major": planes.permute(1, 0, 2).contiguous()
+            .permute(1, 0, 2),
+            "misaligned": misaligned_copy(planes),
+            "odd pack stride": odd}
+
+
+def split_masks(rng, P: int, W: int):
+    """Incoming masks u32[P, W] for the split scan kernels, by name: absent
+    (None), empty, full, random, and rows only in each pack's last word."""
+    last = np.zeros((P, W), np.uint32)
+    last[:, -1] = _rand_u32(rng, P) | 1
+    return {"absent": None, "empty": np.zeros((P, W), np.uint32),
+            "full": np.full((P, W), 0xFFFFFFFF, np.uint32),
+            "random": _rand_u32(rng, (P, W)), "last word": last}

@@ -13,7 +13,8 @@ from knoxdb_tpu_torch.ops import bitset as TBS
 from knoxdb_tpu_torch.ops import group_kernels as GK
 from knoxdb_tpu_torch.ops import scan_kernels as SK
 from knoxdb_tpu_torch.ops import words as WD
-from knoxdb_tpu_torch.testing import random_tree_case
+from knoxdb_tpu_torch.testing import (misaligned_copy, random_tree_case,
+                                      split_layouts, split_masks)
 
 pytestmark = pytest.mark.cuda
 
@@ -139,6 +140,95 @@ def test_pack_major_view_equals_plane_major(cuda, width):
     with pytest.raises(ValueError, match="last axis"):
         SK.range_mask_count(planes.permute(0, 2, 1).contiguous()
                             .permute(0, 2, 1), lo, hi, fl, m, width)
+
+
+@pytest.mark.parametrize("layout", ["plane-major", "pack-major",
+                                    "misaligned", "odd pack stride"])
+@pytest.mark.parametrize("width", [0, 1, 48, 64])
+@pytest.mark.parametrize("P,W", [(1, 2048), (37, 2052), (64, 33),
+                                 (64, 2048), (3, 8192)])
+def test_split_kernels_at_slice_shapes(cuda, P, W, width, layout):
+    """5a and 5b = plain bit for bit where the pack's slices and the load
+    form change: one pack, W = 2052 (two CTAs in a cluster, the last one
+    quad short), 8192 (a cluster of four) and 33, every incoming mask;
+    plane-major and the pack-major view run the 16-byte form where W % 4 ==
+    0, a misaligned base (planes and mask) and pack stride W + 1 the scalar
+    form."""
+    rng = np.random.default_rng(P * 1000 + W + width)
+    planes, ops, _lf, _m, _w, _s = random_tree_case(
+        rng, (width,), P, W, 1, (), empty_pack=False)
+    pt = split_layouts(WD.to_words(planes[0], cuda))[layout]
+    lo, hi, fl = (WD.to_words(a, cuda) for a in ops[0])
+    for mname, m in split_masks(rng, P, W).items():
+        mt = None if m is None else WD.to_words(m, cuda)
+        if mt is not None and layout == "misaligned":
+            mt = misaligned_copy(mt)
+        got = SK.range_mask_count(pt, lo, hi, fl, mt, width)
+        torch.cuda.synchronize()
+        for g, w, name in zip(got, SK.range_mask_count_torch(
+                pt, lo, hi, fl, mt, width), ("mask", "cnt")):
+            _same(g, w, f"5a {name}, mask {mname}")
+        if mt is not None:
+            got = SK.masked_plane_popcounts(pt, mt, width)
+            torch.cuda.synchronize()
+            for g, w, name in zip(got, SK.masked_plane_popcounts_torch(
+                    pt, mt, width), ("pcnt", "cnt")):
+                _same(g, w, f"5b {name}, mask {mname}")
+
+
+@pytest.mark.parametrize("layout", ["plane-major", "misaligned"])
+@pytest.mark.parametrize("W", [2048, 2052, 33])
+def test_split_kernels_last_word_of_last_slice(cuda, W, layout):
+    """Rows pass only in the last word of the middle pack, the last word of
+    its last slice: every row passes the ladder, so the mask in decides;
+    the other packs count 0."""
+    P, width = 3, 48
+    rng = np.random.default_rng(W)
+    planes, ops, _lf, _m, _w, _s = random_tree_case(
+        rng, (width,), P, W, 1, (), empty_pack=False)
+    pt = split_layouts(WD.to_words(planes[0], cuda))[layout]
+    lo, hi, fl = (WD.to_words(a, cuda) for a in ops[0])
+    fl[:, 1] = fl[:, 4] = -1          # lo at or below, hi above every pack
+    fl[:, 0] = fl[:, 3] = 0
+    m = np.zeros((P, W), np.uint32)
+    m[1, -1] = 0x80000001
+    mt = WD.to_words(m, cuda)
+    if layout == "misaligned":
+        mt = misaligned_copy(mt)
+    mask, cnt = SK.range_mask_count(pt, lo, hi, fl, mt, width)
+    pcnt, cnt2 = SK.masked_plane_popcounts(pt, mt, width)
+    torch.cuda.synchronize()
+    assert cnt.tolist() == cnt2.tolist() == [0, 2, 0]
+    _same(mask, mt.contiguous(), "mask")
+    for g, w in zip((mask, cnt, pcnt, cnt2),
+                    (*SK.range_mask_count_torch(pt, lo, hi, fl, mt, width),
+                     *SK.masked_plane_popcounts_torch(pt, mt, width))):
+        _same(g, w, "last word")
+
+
+def test_split_kernel_launch_counters(cuda):
+    """Each call of a split wrapper on the card adds one launch to its own
+    counter and runs no plain version, with one CTA per pack and with
+    clusters of two and four, in both load forms."""
+    rng = np.random.default_rng(1)
+    for P, W, layout in ((1, 33, "plane-major"), (5, 2048, "plane-major"),
+                         (5, 2048, "misaligned"), (2, 4096, "pack-major"),
+                         (2, 8192, "odd pack stride")):
+        planes, ops, _lf, m, _w, _s = random_tree_case(
+            rng, (16,), P, W, 1, (), empty_pack=False)
+        pt = split_layouts(WD.to_words(planes[0], cuda))[layout]
+        cons = [WD.to_words(a, cuda) for a in ops[0]]
+        mt = WD.to_words(m, cuda)
+        before = (dict(SK.LAUNCHES), dict(SK.PLAIN_CALLS))
+        for _ in range(3):
+            SK.range_mask_count(pt, *cons, mt, 16)
+        SK.masked_plane_popcounts(pt, mt, 16)
+        torch.cuda.synchronize()
+        assert SK.LAUNCHES["range_mask_count"] \
+            == before[0]["range_mask_count"] + 3
+        assert SK.LAUNCHES["masked_plane_popcounts"] \
+            == before[0]["masked_plane_popcounts"] + 1
+        assert SK.PLAIN_CALLS == before[1]
 
 
 @pytest.mark.parametrize("mode", ["EQ", "LT", "LE", "GT", "GE", "RANGE"])

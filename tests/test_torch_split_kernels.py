@@ -22,7 +22,8 @@ from jax.experimental import pallas as pl
 from knoxdb_tpu.ops import pallas_scan as PS
 from knoxdb_tpu_torch.ops import scan_kernels as SK
 from knoxdb_tpu_torch.ops import words as WD
-from knoxdb_tpu_torch.testing import random_tree_case
+from knoxdb_tpu_torch.testing import (misaligned_copy, random_tree_case,
+                                      split_layouts, split_masks)
 
 _spec = importlib.util.spec_from_file_location(
     "ps_variants", Path(__file__).resolve().parents[1] / "probes"
@@ -160,6 +161,48 @@ def test_split_pair_equals_fused_range_sum_ref(rng, width):
         assert torch.equal(fm, mask)
         np.testing.assert_array_equal(fp.numpy(), pcnt.numpy())
         np.testing.assert_array_equal(fc.numpy(), cnt.numpy())
+
+
+@pytest.mark.parametrize("width", [0, 1, 48, 64])
+@pytest.mark.parametrize("P_,W_", [(1, 2048), (37, 2052), (64, 33)])
+def test_split_pair_at_slice_shapes(P_, W_, width):
+    """range_mask_count then masked_plane_popcounts = the reference's
+    composition at the shapes where the CUDA kernels' pack slices and load
+    forms change (one pack; W = 2052, whose last slice is one quad short;
+    W = 33), with every incoming mask (absent = every row; rows only in
+    each pack's last word, under a range that holds every value) and in
+    every layout the wrappers take: plane-major, the pack-major view, a
+    misaligned copy (mask too) and pack stride W + 1."""
+    rng = np.random.default_rng(P_ * 1000 + W_ + width)
+    mins = rng.integers(0, 500, P_, dtype=np.uint64)
+    planes = rng.integers(0, 1 << 32, (max(width, 1), P_, W_),
+                          dtype=np.uint64).astype(np.uint32)
+    if width == 0:
+        planes[:] = 0
+    layouts = split_layouts(WD.to_words(planes, "cpu"))
+    for mname, m in split_masks(rng, P_, W_).items():
+        lo, hi = (0, (1 << 64) - 1) if mname == "last word" \
+            else (100, 100 + (1 << min(width, 40)) // 2)
+        ops = [WD.to_words(a, "cpu") for a in SK.range_consts(
+            mins, np.uint64(lo), np.uint64(hi), width)]
+        valid = np.full((P_, W_), 0xFFFFFFFF, np.uint32) if m is None else m
+        rmask, rpcnt, rcnt = (np.asarray(a) for a in PS.fused_range_sum_ref(
+            jnp.asarray(planes), jnp.asarray(mins), jnp.asarray(valid),
+            jnp.uint64(lo), jnp.uint64(hi), width))
+        if mname == "last word":
+            assert (rcnt > 0).all() and not rmask[:, :-1].any()
+        for layout, pt in layouts.items():
+            mt = None if m is None else WD.to_words(m, "cpu")
+            if mt is not None and layout == "misaligned":
+                mt = misaligned_copy(mt)
+            what = f"{layout}, mask {mname}"
+            mask, cnt = SK.range_mask_count(pt, *ops, mt, width)
+            pcnt, cnt2 = SK.masked_plane_popcounts(pt, mask, width)
+            np.testing.assert_array_equal(WD.from_words(mask), rmask,
+                                          err_msg=what)
+            np.testing.assert_array_equal(cnt.numpy(), rcnt, err_msg=what)
+            np.testing.assert_array_equal(cnt2.numpy(), rcnt, err_msg=what)
+            np.testing.assert_array_equal(pcnt.numpy(), rpcnt, err_msg=what)
 
 
 def test_wrappers_reject_bad_planes(rng):
