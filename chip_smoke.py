@@ -79,9 +79,22 @@ exits nonzero:
        with a cap retry and join_count_device, each an exact pair multiset;
      - the sort probe: kernel #8 on the join's merged (key, tagged id)
        operands at M = 8,388,608;
-     - tx join accounts from two segments of 4,194,304 rows, composed as
-       engine/table.py's join_side and rows_at_positions do, with no
-       filter and with amount > 0: every pair's amount and bal;
+     - the engine (knoxdb_tpu_torch.engine: Engine, Table, WAL, journal,
+       store), each answer exactly equal to a numpy oracle kept from the
+       rows the script wrote: config #1's rows (bench.py's schema and
+       data, 256 x 65,536) committed in 16 batches of 1,048,576 rows,
+       each merged; 0.1% scattered deletes and a 1,000-row update before
+       the last three merges (dead-row masks, folded segments); then
+       100,000 committed rows and a second update left in the journal;
+       Table.query with config #1, entry() and an OR tree (kernels #1,
+       #2, 5a and 5b), sorted_query top-100 by val; the same queries
+       after a reopen (load_segments + replay_wal) and under a device
+       budget below one segment (evictions and re-uploads); config #3
+       group_query (kernel #3) and config #6 run_series (kernels #3 and
+       #4) through their own tables; tx join accounts through two tables
+       of 4,194,304 rows (join_side, join_pairs_device,
+       rows_at_positions), with no filter and with amount > 0: every
+       pair's amount and bal;
   5. timing (CUDA events, medians over alternating query variants, with
      the host's launch overhead hidden behind a GPU sleep): each kernel
      and its plain version at the main paths' shapes (scan kernels also
@@ -96,7 +109,7 @@ exits nonzero:
      torch.sort on the join's operands with the probe's projection
      (msort_probe.py:221-236) from the card's own costs; each join
      core's wall and its device time in sorts, in the D2H copy and in the
-     rest; scan(project=) and the tx join's wall; the split kernels on
+     rest; scan(project=)'s wall; the split kernels on
      config #1's val planes beside the one-leaf kernel, warm and L2-flushed
      and at the pack-major view (5a and 5b first on every operand set
      that config #2's OR subtree and fee RANGE, config #4's big RANGE and
@@ -106,7 +119,11 @@ exits nonzero:
      call; the DELTA decode's transpose and prefix sum; the chunk kernel at
      config #3's and #3c's operands beside its plain version, one
      index_add_ and kernel #3 on the same rows, and the wall, device time
-     and idle share of the chunk route and of every float call. Every kernel's
+     and idle share of the chunk route and of every float call; the
+     engine's insert rows/s, merge and reopen seconds, and the wall and
+     device idle share of Table.query (beside SegmentScanner.scan on the
+     same bench rows), group_query, run_series and the tx join, each line
+     with the card's name and power limit. Every kernel's
      record carries its bound (bytes over the published HBM rate against
      word operations over the published float32 rate; kernel #8 also its
      shared-memory traffic) and, where one PyTorch call computes the same
@@ -117,16 +134,21 @@ exits nonzero:
      the SASS atomics of the scan and group libraries.
 
 The last three lines are the kernels' JSON record, the card, and
-{"ok": true, "device": {...}}. Needs a CUDA device and the repository.
+{"ok": true, "device": {...}}. Needs a CUDA device and the repository;
+the engines write their stores and WALs under a temporary directory that
+the script removes at exit.
 """
 
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -650,6 +672,13 @@ def _stream_bps(dev) -> float:
 def _cfg3_segment(n_packs: int, G: int):
     """BASELINE config #3 (bench_suite.py:171-198) at n_packs packs."""
     from knoxdb_tpu_torch.pack.segment import build_segment
+    sch, data = _cfg3_rows(n_packs, G)
+    t0 = time.perf_counter()
+    seg = build_segment(sch, data, pack_size=PACK_SIZE)
+    return sch, data, seg, time.perf_counter() - t0
+
+
+def _cfg3_rows(n_packs: int, G: int):
     from knoxdb_tpu_torch.schema.schema import Builder
     from knoxdb_tpu_torch.types import FieldType
 
@@ -662,9 +691,7 @@ def _cfg3_segment(n_packs: int, G: int):
     data = {"id": np.arange(1, n + 1, dtype=np.uint64),
             "acct": rng.integers(0, G, n, dtype=np.uint64),
             "bal": rng.integers(-1 << 40, 1 << 40, n, dtype=np.int64)}
-    t0 = time.perf_counter()
-    seg = build_segment(sch, data, pack_size=PACK_SIZE)
-    return sch, data, seg, time.perf_counter() - t0
+    return sch, data
 
 
 _U64_MAX = np.uint64(0xFFFFFFFFFFFFFFFF)
@@ -713,6 +740,13 @@ def _cfg3_check(name, data, thr, out, minmax):
 def _cfg6_segment(n_packs: int):
     """Config #6 (bench_suite.py:438-455) at n_packs packs."""
     from knoxdb_tpu_torch.pack.segment import build_segment
+    sch, data = _cfg6_rows(n_packs)
+    t0 = time.perf_counter()
+    seg = build_segment(sch, data, pack_size=PACK_SIZE)
+    return sch, data, seg, time.perf_counter() - t0
+
+
+def _cfg6_rows(n_packs: int):
     from knoxdb_tpu_torch.schema.schema import Builder
     from knoxdb_tpu_torch.types import FieldType
 
@@ -725,9 +759,7 @@ def _cfg6_segment(n_packs: int):
     data = {"id": np.arange(1, n + 1, dtype=np.uint64),
             "ts": (T6 + rng.integers(0, G6 * IV6, n)).astype(np.uint64),
             "val": rng.integers(-1 << 30, 1 << 30, n)}
-    t0 = time.perf_counter()
-    seg = build_segment(sch, data, pack_size=PACK_SIZE)
-    return sch, data, seg, time.perf_counter() - t0
+    return sch, data
 
 
 def _cfg6_check(data, out):
@@ -1337,10 +1369,9 @@ def phase_joins(dev, nl):
     return d, cap, out, (lk, rk, rku)
 
 
-def _txacct_segments(lk, rku):
+def _txacct_rows(lk, rku):
     """tx (id pk, acct u64 = the probe keys, amount i64 in +-2^40) and
     accounts (id pk, aid u64 = the unique build keys, bal i64)."""
-    from knoxdb_tpu_torch.pack.segment import build_segment
     from knoxdb_tpu_torch.schema.schema import Builder
     from knoxdb_tpu_torch.types import FieldType
 
@@ -1354,73 +1385,7 @@ def _txacct_segments(lk, rku):
           "amount": rng.integers(-1 << 40, 1 << 40, nl, dtype=np.int64)}
     ac = {"id": np.arange(1, nr + 1, dtype=np.uint64), "aid": rku,
           "bal": rng.integers(-1 << 40, 1 << 40, nr, dtype=np.int64)}
-    t0 = time.perf_counter()
-    segs = (build_segment(tx_s, tx, pack_size=PACK_SIZE),
-            build_segment(ac_s, ac, pack_size=PACK_SIZE))
-    return (tx_s, tx, segs[0]), (ac_s, ac, segs[1]), \
-        time.perf_counter() - t0
-
-
-def _join_side(sc, tree, field):
-    """engine/table.py:836-861 for one segment: the scan's mask plan ->
-    the key column decoded (group_decode_keys, table.py:845-852) -> the
-    selection vector (mask_to_indexes, :854-855) -> the keys and positions
-    of the matching rows (:856-860). Keys in the two's-complement value
-    domain (:830): the ordered key with bit 63 flipped back for an
-    unsigned field, as it stands for a signed one."""
-    import torch
-    from knoxdb_tpu_torch.exec import device as D
-    from knoxdb_tpu_torch.ops import compact as CP
-
-    d = sc.d
-    fn, args = sc.prepare(tree, [])
-    mask_words, counts, _ = fn(*args)
-    total = int(counts.sum())
-    cap = min(1 << max(0, (total - 1).bit_length()), d.P * d.N)
-    groups = d.column(field).groups
-    keys = torch.empty((d.P, d.N), dtype=torch.int64, device=d.device)
-    for g in groups:
-        keys[g.idx_t] = D.group_decode_keys(g, d.W)
-    if not d.seg.columns[field].field.type.is_signed:
-        keys ^= -(1 << 63)
-    idx, _ = CP.packed_mask_to_indexes(mask_words, cap)
-    safe = torch.where(idx == CP.SENTINEL, 0, idx).long()
-    pos = (idx.long() & 0xFFFFFFFF)[:total]
-    return keys.reshape(-1)[safe][:total], pos
-
-
-def _rows_at(sc, positions, project):
-    """engine/table.py:892-911 for one segment: the matched positions as an
-    include bitset, one scan(None, project=) over it, then each position's
-    row through the inverse of the ascending row ids (a scatter; table.py
-    searches them, which costs seconds at 2M random positions)."""
-    from knoxdb_tpu_torch.exec.scan import AggSpec
-    from knoxdb_tpu_torch.ops import bitset as BS
-
-    d = sc.d
-    mm = np.zeros(d.P * d.N, bool)
-    mm[positions] = True
-    incl = BS.np_pack_mask(mm).reshape(d.P, d.N // 32)
-    r = sc.scan(None, [AggSpec("count")], project=project, include_words=incl)
-    inv = np.empty(d.P * d.N, np.int64)
-    inv[r.row_ids.astype(np.int64)] = np.arange(len(r.row_ids))
-    take = inv[positions]
-    return {name: r.rows[name][take] for name in project}
-
-
-def _tx_join(sc_tx, sc_ac, tree):
-    """tx ⋈ accounts on acct = aid, amount and bal of every pair."""
-    from knoxdb_tpu_torch.exec import join as TJ
-    from knoxdb_tpu_torch.types import JoinType
-
-    lkeys, lpos = _join_side(sc_tx, tree, "acct")
-    rkeys, rpos = _join_side(sc_ac, None, "aid")
-    li, ri = TJ.join_pairs_device(lkeys, rkeys, JoinType.INNER,
-                                  unique_build=True)
-    lp = lpos.cpu().numpy()[li]
-    rp = rpos.cpu().numpy()[ri]
-    return lp, rp, {**_rows_at(sc_tx, lp, ["amount"]),
-                    **_rows_at(sc_ac, rp, ["bal"])}
+    return tx_s, tx, ac_s, ac
 
 
 def _tx_join_check(name, got, tx, ac, m):
@@ -1616,30 +1581,6 @@ def phase_sort_probe(dev, lk, rk):
           f"version; launches {sort_launches}")
     return kops, pops, probe_ns, sort_err, sort_launches
 
-
-def phase_tx_join(dev, lk, rku):
-    """tx ⋈ accounts from segments, with no filter and with amount > 0."""
-    from knoxdb_tpu_torch.exec.device import DeviceSegment
-    from knoxdb_tpu_torch.exec.scan import SegmentScanner
-
-    nl = len(lk)
-    (tx_s, tx, seg_tx), (ac_s, ac, seg_ac), t_build5 = \
-        _txacct_segments(lk, rku)
-    sc_tx = SegmentScanner(DeviceSegment(seg_tx, dev))
-    sc_ac = SegmentScanner(DeviceSegment(seg_ac, dev))
-    tx_tree = _gt_tree(tx_s, "amount", 0)
-    for name, tree, m in (("no filter", None, np.ones(nl, bool)),
-                          ("amount > 0", tx_tree, tx["amount"] > 0)):
-        got, launches = run_path(lambda: _tx_join(sc_tx, sc_ac, tree))
-        need(launches, ("fused_tree_agg",), f"tx join {name}")
-        npairs = _tx_join_check(f"tx join {name}", got, tx, ac, m)
-        print(f"phase 4 main path tx join accounts ({name}): {nl} x {nl} "
-              f"rows, host build {t_build5:.2f} s; join_side (mask, "
-              f"group_decode_keys, mask_to_indexes, take) -> "
-              f"join_pairs_device(unique_build) -> scan(project=) over "
-              f"include bitsets: {npairs} pairs, amount and bal exact vs "
-              f"numpy; launches {launches}")
-    return sc_tx, sc_ac, tx_tree
 
 # ------------------------------------- config #2 and config #4 (top-k) ---
 
@@ -2166,6 +2107,490 @@ def time_topk(sc4, tree4):
     return out
 
 
+# ------------------------------------------------------------ the engine ---
+# Config #1, #3, #6 and tx ⋈ accounts through the port's Engine and Table:
+# committed inserts (WAL + journal), merges into sealed segments (with
+# folds past Table.MAX_SEGMENTS), scattered deletes that become dead-row
+# masks, updates, a journal overlay, then queries held against numpy
+# oracles kept from the rows the script wrote; a reopen from the store
+# and the WAL, and a device budget below one segment.
+
+ENGINE_BATCH = 16 * PACK_SIZE       # rows per committed insert batch
+ENGINE_JOURNAL = 100_000            # committed rows left in the journal
+ENGINE_UPDATE = 1000                # rows each update rewrites
+ENGINE_DELETE_EVERY = 1000          # every 1000th row dies: 0.1%
+OR_LO, OR_HI, OR_BAL = 1000, 5000, -(1 << 39)
+
+
+def _engine(root, name, dev, **kw):
+    """A file-backed engine at root/name. Its journal holds two batches,
+    so a commit never merges by itself: each merge() is the script's, and
+    the insert and merge times stay apart."""
+    from knoxdb_tpu_torch.engine import Engine, Options
+    return Engine(name, Options(driver="file", path=str(root / name),
+                                device=str(dev), pack_size=PACK_SIZE,
+                                journal_size=2 * ENGINE_BATCH,
+                                background_merge=False, **kw))
+
+
+def _commit(e, fn):
+    with e.begin() as tx:
+        return fn(tx)
+
+
+def _insert_batches(e, t, data, batch, between=None):
+    """Committed insert batches, each followed by a merge; between(b) runs
+    before batch b's merge. Returns (insert seconds, merge seconds)."""
+    n = len(data["id"])
+    t_ins, t_merge = [], []
+    for b in range(-(-n // batch)):
+        part = {k: v[b * batch:(b + 1) * batch] for k, v in data.items()}
+        t0 = time.perf_counter()
+        _commit(e, lambda tx: t.insert_rows(tx, part))
+        t_ins.append(time.perf_counter() - t0)
+        if between is not None:
+            between(b)
+        t0 = time.perf_counter()
+        t.merge()
+        t_merge.append(time.perf_counter() - t0)
+    return t_ins, t_merge
+
+
+class _Live:
+    """Config #1's live rows as the script wrote them, indexed by id: the
+    engine phase's numpy oracle."""
+
+    def __init__(self, cap):
+        self.val = np.zeros(cap + 1, np.uint64)
+        self.bal = np.zeros(cap + 1, np.int64)
+        self.alive = np.zeros(cap + 1, bool)
+
+    def put(self, ids, val, bal):
+        self.val[ids] = val
+        self.bal[ids] = bal
+        self.alive[ids] = True
+
+    def kill(self, ids):
+        self.alive[ids] = False
+
+    def rows(self):
+        ids = np.flatnonzero(self.alive)
+        return ids.astype(np.uint64), self.val[ids], self.bal[ids]
+
+
+def _engine_queries(sch):
+    """name -> (tree(lo), aggs, kernels that must launch, oracle(ids, val,
+    bal, lo) -> (count, aggs))."""
+    from knoxdb_tpu_torch.exec.scan import AggSpec
+    from knoxdb_tpu_torch.query.filter import Filter, and_, leaf, or_
+    from knoxdb_tpu_torch.types import FilterMode
+
+    def F(f, m, v):
+        return leaf(Filter(sch.field(f), m, v))
+
+    def cfg1(lo):
+        return F("val", FilterMode.RANGE, (lo, 50000)).optimize()
+
+    def entry(lo):
+        return and_(F("val", FilterMode.RANGE, (lo, 50000)),
+                    F("bal", FilterMode.GT, 0)).optimize()
+
+    def ortree(lo):
+        return or_(F("val", FilterMode.RANGE, (lo, OR_HI)),
+                   F("bal", FilterMode.LT, OR_BAL)).optimize()
+
+    def o_cfg1(ids, val, bal, lo):
+        m = (val >= lo) & (val <= 50000)
+        return int(m.sum()), {("count", ""): int(m.sum()),
+                              ("sum", "val"): _isum(val[m])}
+
+    def o_entry(ids, val, bal, lo):
+        m = (val >= lo) & (val <= 50000) & (bal > 0)
+        return int(m.sum()), {("count", ""): int(m.sum()),
+                              ("sum", "bal"): _isum(bal[m]),
+                              ("min", "val"): int(val[m].min()),
+                              ("max", "val"): int(val[m].max())}
+
+    def o_or(ids, val, bal, lo):
+        m = ((val >= lo) & (val <= OR_HI)) | (bal < OR_BAL)
+        return int(m.sum()), {("count", ""): int(m.sum()),
+                              ("sum", "val"): _isum(val[m]),
+                              ("sum", "id"): _isum(ids[m])}
+
+    return {
+        "config1": (cfg1, [AggSpec("count"), AggSpec("sum", "val")],
+                    ("fused_range_sum_masked",), o_cfg1),
+        "entry": (entry, [AggSpec("count"), AggSpec("sum", "bal"),
+                          AggSpec("min", "val"), AggSpec("max", "val")],
+                  ("fused_tree_agg",), o_entry),
+        "OR tree": (ortree, [AggSpec("count"), AggSpec("sum", "val"),
+                             AggSpec("sum", "id")],
+                    ("range_mask_count", "masked_plane_popcounts",
+                     "fused_tree_agg"), o_or),
+    }
+
+
+def _engine_query_all(e, t, queries, live, what, lo=OR_LO):
+    """Every config #1 query through Table.query, each against the oracle;
+    returns {name: (count, aggs)} and {name: launches}."""
+    ids, val, bal = live.rows()
+    out, launches = {}, {}
+    for name, (mk, aggs, kernels, oracle) in queries.items():
+        def call():
+            with e.begin(read_only=True) as tx:
+                return t.query(tx.snapshot, mk(lo), aggs)
+        r, launches[name] = run_path(call)
+        need(launches[name], kernels, f"engine {what} {name}")
+        count, want = oracle(ids, val, bal, lo)
+        if r.count != count or r.aggs != want:
+            raise AssertionError(f"engine {what} {name}: {r.count} "
+                                 f"{r.aggs} != {count} {want}")
+        out[name] = (r.count, r.aggs)
+    return out, launches
+
+
+def _topk_check(e, t, live, k=100):
+    """sorted_query top-k by val, descending: the k largest live values,
+    each returned id live with its value, no id twice."""
+    def call():
+        with e.begin(read_only=True) as tx:
+            return t.sorted_query(tx.snapshot, None, "val", desc=True,
+                                  limit=k, project=["id", "val"])
+    r, launches = run_path(call)
+    need(launches, ("fused_tree_agg",), "engine sorted_query")
+    ids, val, _ = live.rows()
+    want = np.sort(val)[::-1][:k]
+    got_id = np.asarray(r.rows["id"], np.int64)
+    got_v = np.asarray(r.rows["val"], np.uint64)
+    if not (np.array_equal(got_v, want) and len(set(got_id.tolist())) == k
+            and live.alive[got_id].all()
+            and np.array_equal(live.val[got_id], got_v)):
+        raise AssertionError("engine sorted_query top-k differs from numpy")
+    return launches, [int(x) for x in got_v[:3]]
+
+
+def phase_engine_config1(dev, root):
+    """Config #1 through the engine at N_PACKS x PACK_SIZE rows: batches
+    of ENGINE_BATCH rows, each committed and merged; before the last three
+    merges, 0.1% scattered deletes and an update of ENGINE_UPDATE rows
+    (the merges turn them into dead-row masks on kept segments, fold the
+    smallest segments and seal the updated rows); then a committed
+    journal batch and a second update left unmerged. Queries: config #1,
+    entry(), an OR tree (its leaves unfused), top-100 by val."""
+    from knoxdb_tpu_torch.engine.table import Table
+    from knoxdb_tpu_torch.schema.schema import Builder
+    from knoxdb_tpu_torch.types import FieldType
+
+    n = PACK_SIZE * N_PACKS
+    rng = np.random.default_rng(SEED)             # bench.py's rows
+    sch = (Builder("bench").pk("id").add("val", FieldType.UINT64)
+           .add("bal", FieldType.INT64).finish())
+    data = {"id": np.arange(1, n + 1, dtype=np.uint64),
+            "val": rng.integers(0, 1 << 16, n, dtype=np.uint64),
+            "bal": rng.integers(-1 << 40, 1 << 40, n, dtype=np.int64)}
+    rng2 = np.random.default_rng(SEED + 1)       # the writes after them
+    live = _Live(n + ENGINE_JOURNAL)
+    e = _engine(root, "cfg1", dev)
+    t = e.create_table(sch)
+    nb = -(-n // ENGINE_BATCH)
+    written = {"deleted": 0, "updated": 0}
+
+    def update():
+        ids = rng2.choice(np.flatnonzero(live.alive), ENGINE_UPDATE,
+                          replace=False).astype(np.uint64)
+        rows = {"id": ids,
+                "val": rng2.integers(0, 1 << 16, len(ids), dtype=np.uint64),
+                "bal": rng2.integers(-1 << 40, 1 << 40, len(ids))}
+        got = _commit(e, lambda tx: t.update_rows(tx, rows))
+        if got != len(ids):
+            raise AssertionError(f"engine update: {got} rows")
+        live.put(ids.astype(np.int64), rows["val"], rows["bal"])
+        written["updated"] += len(ids)
+
+    def between(b):
+        sl = slice(b * ENGINE_BATCH, (b + 1) * ENGINE_BATCH)
+        live.put(data["id"][sl].astype(np.int64), data["val"][sl],
+                 data["bal"][sl])
+        if b != nb - 3:
+            return
+        from knoxdb_tpu_torch.query.filter import Filter, leaf
+        from knoxdb_tpu_torch.types import FilterMode
+        dels = np.arange(7, (b + 1) * ENGINE_BATCH + 1, ENGINE_DELETE_EVERY)
+        tree = leaf(Filter(sch.field("id"), FilterMode.IN,
+                           dels.tolist())).optimize()
+        got = _commit(e, lambda tx: t.delete_rows(tx, tree))
+        if got != len(dels):
+            raise AssertionError(f"engine delete: {got} != {len(dels)}")
+        live.kill(dels)
+        written["deleted"] = len(dels)
+        update()
+
+    t0 = time.perf_counter()
+    t_ins, t_merge = _insert_batches(e, t, data, ENGINE_BATCH, between)
+    jrows = {"id": np.arange(n + 1, n + ENGINE_JOURNAL + 1, dtype=np.uint64),
+             "val": rng2.integers(0, 1 << 16, ENGINE_JOURNAL,
+                                  dtype=np.uint64),
+             "bal": rng2.integers(-1 << 40, 1 << 40, ENGINE_JOURNAL)}
+    _commit(e, lambda tx: t.insert_rows(tx, jrows))
+    live.put(jrows["id"].astype(np.int64), jrows["val"], jrows["bal"])
+    update()
+    t_write = time.perf_counter() - t0
+    segs = [(h.seg.nrows_total, h.n_dead) for h in t.segments]
+    if len(segs) > Table.MAX_SEGMENTS or not any(d for _, d in segs) \
+            or t.journal.is_empty():
+        raise AssertionError(f"engine layout: {segs}")
+    queries = _engine_queries(sch)
+    answers, launches = _engine_query_all(e, t, queries, live, "config1")
+    top_launches, top3 = _topk_check(e, t, live)
+    print(f"phase 4 main path engine config1: {n} rows in {nb} committed "
+          f"batches of {ENGINE_BATCH}, each merged; {written['deleted']} "
+          f"scattered deletes and {written['updated']} updated rows; "
+          f"{ENGINE_JOURNAL} + {ENGINE_UPDATE} rows and "
+          f"{ENGINE_UPDATE} tombstones left in the journal; "
+          f"{len(segs)} sealed segments (rows, dead rows) {segs}; writes "
+          f"{t_write:.2f} s; "
+          + "; ".join(f"Table.query {k}: count={v[0]} aggs={v[1]}, launches "
+                      f"{launches[k]}" for k, v in answers.items())
+          + f"; sorted_query top-100 by val desc {top3}..., launches "
+          f"{top_launches}; every answer exact vs the numpy oracle")
+    return {"e": e, "t": t, "sch": sch, "live": live, "queries": queries,
+            "answers": answers, "t_ins": t_ins, "t_merge": t_merge,
+            "rows": n, "launches": launches}
+
+
+def phase_engine_reopen(dev, root, cfg1, **opts):
+    """Close the config #1 engine and open it again on its path
+    (load_segments + replay_wal): the same answers; with opts a device
+    budget below one segment, so that queries evict and re-upload."""
+    cfg1["e"].close()
+    cfg1["e"] = cfg1["t"] = None
+    import torch
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    e = _engine(root, "cfg1", dev, **opts)
+    t_open = time.perf_counter() - t0
+    t = e.table("bench")
+    what = "eviction" if opts else "reopen"
+    answers, launches = _engine_query_all(e, t, cfg1["queries"],
+                                          cfg1["live"], what)
+    if answers != cfg1["answers"]:
+        raise AssertionError(f"engine {what}: {answers} != "
+                             f"{cfg1['answers']}")
+    if opts and not e.cache.evictions:
+        raise AssertionError("engine eviction: no segment was evicted")
+    print(f"phase 4 main path engine {what}: open (load_segments + "
+          f"replay_wal) {t_open:.2f} s"
+          + (f", device_cache_bytes {opts['device_cache_bytes']}, "
+             f"{e.cache.evictions} evictions" if opts else "")
+          + f"; {len(t.segments)} segments, journal "
+          f"{t.journal.nrows} rows; every answer equal to the first run's; "
+          f"launches {launches}")
+    cfg1["e"], cfg1["t"] = e, t
+    return t_open
+
+
+def phase_engine_group_series(dev, root):
+    """Config #3 group_query (count and sum, kernel #3) at N_PACKS packs
+    and config #6 run_series (count, mean and var of val, kernels #3 and
+    #4) at PACKS_SMALL packs, each through its own engine table."""
+    from knoxdb_tpu_torch.series import SeriesRequest, run_series
+
+    sch3, data3 = _cfg3_rows(N_PACKS, G3)
+    e3 = _engine(root, "cfg3", dev)
+    t3 = e3.create_table(sch3)
+    _insert_batches(e3, t3, data3, ENGINE_BATCH)
+    tree3 = _gt_tree(sch3, "bal", THR3)
+
+    def group():
+        with e3.begin(read_only=True) as tx:
+            return t3.group_query(tx.snapshot, tree3, "acct",
+                                  [("count", ""), ("sum", "bal")])
+    out3, l3 = run_path(group)
+    need(l3, ("fused_tree_agg", "fused_group_partials"),
+         "engine config3 group_query")
+    m = data3["bal"] > THR3
+    a = data3["acct"][m].astype(np.int64)
+    cnt = np.bincount(a, minlength=G3)
+    keys = np.flatnonzero(cnt)
+    if not (np.array_equal(np.asarray(out3["keys"], np.int64), keys)
+            and np.array_equal(out3["count"], cnt[keys])):
+        raise AssertionError("engine config3: keys or counts differ")
+    # exact per-group sums through 21-bit split bincounts of bal + 2^40
+    x = data3["bal"][m] + (1 << 40)
+    lo = np.bincount(a, weights=(x & ((1 << 21) - 1)).astype(np.float64),
+                     minlength=G3)
+    hi = np.bincount(a, weights=(x >> 21).astype(np.float64), minlength=G3)
+    sums = [int(hi[g]) * (1 << 21) + int(lo[g]) - int(cnt[g]) * (1 << 40)
+            for g in keys]
+    if list(out3[("sum", "bal")]) != sums:
+        raise AssertionError("engine config3: sums differ")
+
+    sch6, data6 = _cfg6_rows(PACKS_SMALL)
+    e6 = _engine(root, "cfg6", dev)
+    t6 = e6.create_table(sch6)
+    _insert_batches(e6, t6, data6, ENGINE_BATCH)
+    req = SeriesRequest(table=t6, time_field="ts", start=T6,
+                        end=T6 + G6 * IV6, interval=IV6,
+                        aggs=[("count", ""), ("mean", "val"), ("var", "val")])
+    out6, l6 = run_path(lambda: run_series(req))
+    need(l6, ("fused_group_partials", "fused_group_moments_partials"),
+         "engine config6 run_series")
+    bk = ((data6["ts"] - np.uint64(T6)) // np.uint64(IV6)).astype(np.int64)
+    c6 = np.bincount(bk, minlength=G6)
+    if not np.array_equal(out6["count"], c6):
+        raise AssertionError("engine config6: bucket counts differ")
+    v = data6["val"]
+    s6 = np.bincount(bk, weights=v.astype(np.float64), minlength=G6)
+    mean = [int(round(s)) / int(c) for s, c in zip(s6, c6)]
+    if out6[("mean", "val")].tolist() != mean:
+        raise AssertionError("engine config6: means differ")
+    f = v.astype(np.float64)
+    q6 = np.bincount(bk, weights=f * f, minlength=G6)
+    var = (q6 - s6 * s6 / c6) / (c6 - 1)
+    got = np.asarray(out6[("var", "val")].tolist(), np.float64)
+    if not np.allclose(got, var, rtol=1e-9, atol=0):
+        raise AssertionError("engine config6: variances differ")
+    print(f"phase 4 main path engine config3 group_query: "
+          f"{len(data3['id'])} rows committed and merged in batches of "
+          f"{ENGINE_BATCH}, {len(t3.segments)} segments, bal GT filter, "
+          f"G={len(keys)}; counts and sums exact vs numpy; launches {l3}")
+    print(f"phase 4 main path engine config6 run_series: "
+          f"{len(data6['id'])} rows, {G6} buckets of {IV6}; counts and "
+          f"means exact, variances within rel 1e-9 of numpy's f64; "
+          f"launches {l6}")
+    return {"e3": e3, "group": group, "e6": e6, "series":
+            lambda: run_series(req)}
+
+
+def phase_engine_tx_join(dev, root, lk, rku):
+    """tx ⋈ accounts through two engine tables (ENGINE_BATCH committed
+    batches each, merged): Table.join_side on both, join_pairs_device
+    (unique build), Table.rows_at_positions for amount and bal; with no
+    filter and with amount > 0."""
+    from knoxdb_tpu_torch.exec import join as TJ
+    from knoxdb_tpu_torch.types import JoinType
+
+    tx_s, tx, ac_s, ac = _txacct_rows(lk, rku)
+    e = _engine(root, "txacct", dev)
+    ttx, tac = e.create_table(tx_s), e.create_table(ac_s)
+    t0 = time.perf_counter()
+    _insert_batches(e, ttx, tx, ENGINE_BATCH)
+    _insert_batches(e, tac, ac, ENGINE_BATCH)
+    t_write = time.perf_counter() - t0
+    tx_tree = _gt_tree(tx_s, "amount", 0)
+
+    def join(tree):
+        with e.begin(read_only=True) as snap_tx:
+            snap = snap_tx.snapshot
+            lkeys, lpos, lview = ttx.join_side(snap, tree, "acct")
+            rkeys, rpos, rview = tac.join_side(snap, None, "aid")
+            li, ri = TJ.join_pairs_device(lkeys, rkeys, JoinType.INNER,
+                                          unique_build=True)
+            lp = lpos.cpu().numpy()[li]
+            rp = rpos.cpu().numpy()[ri]
+            cols = {**ttx.rows_at_positions(lview, lp, ["amount"]),
+                    **tac.rows_at_positions(rview, rp, ["bal"])}
+        return lp, rp, {k: np.asarray(v.tolist(), np.int64)
+                        for k, v in cols.items()}
+
+    nl = len(lk)
+    for name, tree, m in (("no filter", None, np.ones(nl, bool)),
+                          ("amount > 0", tx_tree, tx["amount"] > 0)):
+        got, launches = run_path(lambda: join(tree))
+        need(launches, ("fused_tree_agg",), f"engine tx join {name}")
+        npairs = _tx_join_check(f"engine tx join {name}", got, tx, ac, m)
+        print(f"phase 4 main path engine tx join accounts ({name}): {nl} x "
+              f"{nl} rows committed and merged in batches of "
+              f"{ENGINE_BATCH} ({t_write:.2f} s); Table.join_side -> "
+              f"join_pairs_device(unique_build) -> Table.rows_at_positions: "
+              f"{npairs} pairs, amount and bal exact vs numpy; launches "
+              f"{launches}")
+    return {"e": e, "join": join, "tree": tx_tree}
+
+
+def time_engine(cfg1, grp, txj, sc, queries, card):
+    """The engine's walls, each printed with the card: insert rows/s,
+    merge seconds, Table.query against SegmentScanner.scan on the same
+    bench rows, group_query, run_series and the tx join, and the device
+    idle share of each call from torch.profiler."""
+    e, t = cfg1["e"], cfg1["t"]
+    mk, aggs, _k, _o = cfg1["queries"]["config1"]
+
+    def table_query(i, name="config1"):
+        q = cfg1["queries"][name]
+        with e.begin(read_only=True) as tx:
+            return t.query(tx.snapshot, q[0](OR_LO + i % 2), q[1])
+
+    smk, saggs = queries["config1"]
+    calls = {
+        "Table.query config1": table_query,
+        "SegmentScanner.scan config1 (phase 4 bench segment)":
+            lambda i: sc.scan(smk(1000 + i % 2), saggs),
+        "Table.query entry": lambda i: table_query(i, "entry"),
+        "Table.query OR tree": lambda i: table_query(i, "OR tree"),
+        "Table.group_query config3": lambda i: grp["group"](),
+        "run_series config6": lambda i: grp["series"](),
+        "tx join accounts (amount > 0)": lambda i: txj["join"](txj["tree"]),
+    }
+    iters = {"tx join accounts (amount > 0)": 2,
+             "Table.group_query config3": 10, "run_series config6": 10}
+    out = {"insert_rows_per_s": cfg1["rows"] / sum(cfg1["t_ins"]),
+           "insert_s": cfg1["t_ins"], "merge_s": cfg1["t_merge"],
+           "reopen_s": cfg1["reopen_s"], "card": card}
+    print(f"phase 5 engine writes ({card}): insert "
+          f"{out['insert_rows_per_s']:.0f} rows/s over "
+          f"{len(cfg1['t_ins'])} committed batches; merge s "
+          f"{[round(x, 3) for x in cfg1['t_merge']]} (total "
+          f"{sum(cfg1['t_merge']):.2f}); reopen {cfg1['reopen_s']:.3f} s")
+    for name, fn in calls.items():
+        n_it = iters.get(name, 20)
+        wall = _wall_ms(fn, iters=n_it, warmup=1)
+        prof = _profile(fn, n=min(5, n_it))
+        out[name] = {"wall_ms": wall, "profile": prof}
+        print(f"phase 5 engine {name} ({card}): wall {wall:.3f} ms "
+              f"(median of {n_it}); device {prof['device_ms']:.3f} ms per "
+              f"call, idle share {prof['idle_share']:.3f}, "
+              f"{prof['device_ops_per_call']:.1f} device ops per call")
+    # where Table.query's wall goes: each stage of the call alone, on
+    # the same read view, host clock (the scans end in D2H copies)
+    from knoxdb_tpu_torch.exec import oracle as ORC
+    q = cfg1["queries"]["config1"]
+    tree, qaggs = q[0](OR_LO), q[1]
+    with e.begin(read_only=True) as tx:
+        segments, jdata, jrids, dead = t._read_view(tx.snapshot)
+        excl = t._exclude_masks_of(segments, dead)
+        scs = [h.scanner_() for h in segments]
+        parts = [sc_.scan(tree, qaggs, exclude_words=x)
+                 for sc_, x in zip(scs, excl)]
+        jmask = ORC.eval_tree(tree, jdata, len(jrids))
+        stages = {
+            "read view": lambda i: t._read_view(tx.snapshot),
+            "exclude words": lambda i: t._exclude_masks_of(segments, dead),
+            "segment scans": lambda i: [
+                sc_.scan(tree, qaggs, exclude_words=x)
+                for sc_, x in zip(scs, excl)],
+            "journal filter": lambda i: ORC.eval_tree(tree, jdata,
+                                                      len(jrids)),
+            "combine": lambda i: t._combine(
+                type(parts[0])(), qaggs, parts, jdata, jmask),
+        }
+        out["Table.query config1 stages"] = {
+            k: _wall_ms(f, iters=5, warmup=1) for k, f in stages.items()}
+    print(f"phase 5 engine Table.query config1 stages, ms ({card}): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in
+                      out["Table.query config1 stages"].items())
+          + f" ({len(segments)} segments, {len(jrids)} journal rows, "
+          f"{len(dead)} tombstones)")
+    tq = out["Table.query config1"]["wall_ms"]
+    sq = out["SegmentScanner.scan config1 (phase 4 bench segment)"][
+        "wall_ms"]
+    print(f"phase 5 engine overhead ({card}): Table.query config1 "
+          f"{tq:.3f} ms over {len(t.segments)} segments + journal against "
+          f"one SegmentScanner.scan {sq:.3f} ms over the same bench rows "
+          f"in one segment: {tq / sq:.2f}x")
+    return out
+
+
 # ------------------------------------- kernels #1-#4, ptxas and SASS ---
 
 def _ptxas_of(log, names):
@@ -2258,6 +2683,15 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "run needs an NVIDIA GPU", file=sys.stderr)
         return 1
+    # the engine phases' stores and WALs, removed whatever happens
+    root = Path(tempfile.mkdtemp(prefix="knox_chip_smoke_"))
+    try:
+        return _run(torch, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _run(torch, root: Path) -> int:
     dev = torch.device("cuda:0")
     card = _card()
     kind = torch.cuda.get_device_name(0)
@@ -2394,8 +2828,18 @@ def main() -> int:
     lk, rk, rku = keys5
     kops, pops, probe_ns, sort_err, sort_launches = \
         phase_sort_probe(dev, lk, rk)
-    sc_tx, sc_ac, tx_tree = phase_tx_join(dev, lk, rku)
-    _mark("joins, sort probe, tx join")
+    _mark("joins, sort probe")
+
+    # ---- phase 4: the engine (Engine, Table, WAL, journal, store) ----
+    cfg1 = phase_engine_config1(dev, root)
+    cfg1["reopen_s"] = phase_engine_reopen(dev, root, cfg1)
+    seg_bytes = min(h.seg.nbytes for h in cfg1["t"].segments)
+    phase_engine_reopen(dev, root, cfg1, device_cache_bytes=seg_bytes // 2)
+    cfg1["reopen_s"] = min(cfg1["reopen_s"],
+                           phase_engine_reopen(dev, root, cfg1))
+    grp = phase_engine_group_series(dev, root)
+    txj = phase_engine_tx_join(dev, root, lk, rku)
+    _mark("engine")
 
     launches_by_kernel = {
         "fused_range_sum_masked": scan_launches["fused_range_sum_masked"],
@@ -2660,15 +3104,13 @@ def main() -> int:
     stages["joins"] = time_joins(jd, jcap)
     stages["scan_project_ms"] = _wall_ms(lambda i: sc.scan(
         _mat_tree(sch, mat_lo + i % 2), [], project=mat_cols), iters=20)
-    stages["tx_join_ms"] = {
-        name: _wall_ms(lambda i: _tx_join(sc_tx, sc_ac, tree), iters=5,
-                       warmup=1)
-        for name, tree in (("no filter", None), ("amount > 0", tx_tree))}
     print(f"phase 5 scan(project=val, bal) at ~1%: "
-          f"{stages['scan_project_ms']:.3f} ms; tx join accounts whole "
-          f"composition: {stages['tx_join_ms']}")
-
+          f"{stages['scan_project_ms']:.3f} ms")
     _mark("phase 5 sort probe, joins, materialization")
+    stages["engine"] = time_engine(cfg1, grp, txj, sc, queries, card)
+    for eng in (cfg1["e"], grp["e3"], grp["e6"], txj["e"]):
+        eng.close()
+    _mark("phase 5 engine")
     print(json.dumps({"kernels": records, "stream_bytes_per_s": stream,
                       "stages": stages, "card": card, "n_rows": n_rows}))
     print(f"card: {card}")

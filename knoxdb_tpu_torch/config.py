@@ -15,5 +15,8 @@ assert PACK_SIZE % 4096 == 0, "PACK_SIZE must be a multiple of 4096"
 # Words per pack for packed u32 bitsets.
 PACK_WORDS = PACK_SIZE // 32
 
+# Journal size (rows) before a background merge is scheduled.
+JOURNAL_SIZE = int(os.environ.get("KNOX_TPU_JOURNAL_SIZE", 1 << 17))
+
 # Statistics: max string prefix bytes kept in zone maps.
 STATS_STRING_MAX_LEN = 8

@@ -12,7 +12,7 @@ import torch
 from . import words as WD
 
 __all__ = ["pack_mask", "unpack_mask", "popcount", "np_pack_mask",
-           "np_unpack_mask"]
+           "np_unpack_mask", "np_indexes"]
 
 _WEIGHTS = [1 << k for k in range(32)]
 
@@ -53,3 +53,9 @@ def np_unpack_mask(words: np.ndarray, n: int) -> np.ndarray:
     bits = np.unpackbits(np.ascontiguousarray(words, np.uint32).view(np.uint8),
                          bitorder="little")
     return bits[:n].astype(bool)
+
+
+def np_indexes(mask: np.ndarray) -> np.ndarray:
+    """Selection vector (row indices of set bits), host side; device
+    compaction lives in ops/compact.py."""
+    return np.flatnonzero(mask).astype(np.uint32)

@@ -124,15 +124,12 @@ def _encode_strings(field: Field, raw, bounds, pack_size: int):
         raise ValueError(
             f"field {field.name}: FilterType.BITS is not supported for "
             f"STRING/BYTES; use bloom/bfuse")
-    if field.filter.is_fuse:
-        raise NotImplementedError(
-            f"field {field.name}: pack filter {field.filter.name} is not "
-            f"ported yet (ROADMAP.md queue 1 item 12: filter/fuse.py)")
     vals = list(raw)
     packs = []
     pref_min = []
     pref_max = []
     blooms = [] if field.filter.is_bloom else None
+    fuses = [] if field.filter.is_fuse else None
     for lo, hi in bounds:
         p = S.encode_string_dict(vals[lo:hi], pack_size,
                                  width_round=sel.round_width)
@@ -142,11 +139,15 @@ def _encode_strings(field: Field, raw, bounds, pack_size: int):
         if blooms is not None:
             nbits = BL.bloom_bits(pack_size, field.filter)
             blooms.append(BL.build_bytes_np(p.dict_bytes, nbits))
+        if fuses is not None:
+            from ..filter import fuse as FU
+            bits = 8 if field.filter == FilterType.BFUSE8 else 16
+            fuses.append(FU.build_bytes(p.dict_bytes, bits))
     col = EncodedColumn(field, packs, wide=False)
     fs = FieldStats(np.array(pref_min, np.uint64),
                     np.array(pref_max, np.uint64),
                     np.stack(blooms) if blooms else None,
-                    field.filter)
+                    field.filter, pack_filters=fuses)
     fs.is_prefix = True
     return col, fs
 
@@ -234,15 +235,28 @@ def segment_from_reference(seg) -> Segment:
                                       col.wide_bases)
     fstats = {}
     for name, fs in seg.stats.fields.items():
-        if fs.pack_filters is not None:
-            raise NotImplementedError(
-                f"field {name}: pack filter {fs.filter_type.name} is not "
-                f"ported yet (ROADMAP.md queue 1 item 12: filter/fuse.py, "
-                f"utils/ridset.py)")
         st = FieldStats(fs.min_key, fs.max_key, fs.bloom_words,
-                        FilterType(int(fs.filter_type)))
+                        FilterType(int(fs.filter_type)),
+                        pack_filters=_pack_filters_from_reference(
+                            fs.pack_filters))
         st.is_prefix = fs.is_prefix
         fstats[name] = st
     stats = SegmentStats(seg.stats.nrows, seg.stats.rid_base, fstats)
     return Segment(schema, seg.pack_size, seg.nrows_total, seg.nrows,
                    columns, stats, seg.epoch)
+
+
+def _pack_filters_from_reference(pfs):
+    """The reference's per-pack XorFilter / RidSet objects -> this
+    package's, by their attributes (same fingerprints, same containers)."""
+    if pfs is None:
+        return None
+    from ..filter.fuse import XorFilter
+    from ..utils.ridset import RidSet
+    out = []
+    for f in pfs:
+        if hasattr(f, "fp"):
+            out.append(XorFilter(f.seed, f.fp))
+        else:
+            out.append(RidSet(f._keys, list(f._containers), f._n))
+    return out

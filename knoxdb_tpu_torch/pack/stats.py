@@ -8,10 +8,10 @@ NONE (no row can match), ALL (every row matches) or MAYBE (evaluate).
 
 Keys are the order-preserving keyform image (utils/limbs.py): u64 arrays
 for types up to 64 bits, python-int object arrays for 128/256-bit types.
-Strings prune on their 8-byte prefix key.
-
-The BFUSE and BITS pack filters (knoxdb_tpu/filter/fuse.py,
-knoxdb_tpu/utils/ridset.py) are not ported yet (ROADMAP.md queue 1 item 12).
+Strings prune on their 8-byte prefix key. A column may also carry one
+pack filter per pack: stacked bloom words, a binary fuse filter
+(filter/fuse.py) or an exact BITS set of keyform values
+(utils/ridset.py).
 """
 
 from __future__ import annotations
@@ -52,7 +52,7 @@ class TriState:
 
 @dataclass
 class FieldStats:
-    """Per-column per-pack zone map (+ optional bloom filter)."""
+    """Per-column per-pack zone map (+ optional bloom/fuse/bits filter)."""
     min_key: np.ndarray          # u64[P] or object[P] python ints (wide)
     max_key: np.ndarray
     bloom_words: np.ndarray | None = None   # u32[P, words] (bloom kinds)
@@ -60,6 +60,9 @@ class FieldStats:
     # True for STRING/BYTES prefix keys: equal prefixes cannot decide, so
     # pruning must use STRICT compares and never emit ALL verdicts
     is_prefix: bool = False
+    # BFUSE8/16: per-pack filter.fuse.XorFilter; BITS: per-pack
+    # utils.ridset.RidSet of EXACT keyform values
+    pack_filters: list | None = None
     # lazily-built coarse level (see coarse()); not serialized
     _coarse: tuple | None = field(default=None, repr=False, compare=False)
 
@@ -93,19 +96,30 @@ class FieldStats:
             mn[p] = k.min() if len(k) else (0 if not wide else 0)
             mx[p] = k.max() if len(k) else (0 if not wide else 0)
         bw = None
+        pf = None
         if filter_type.is_bloom:
             nbits = bloom.bloom_bits(pack_capacity or max(len(k) for k in pack_keys),
                                      filter_type)
             bw = np.zeros((P, nbits // 32), np.uint32)
             for p in range(P):
                 bw[p] = bloom.build_np(limbs_per_pack[p], nbits)
-        elif filter_type.is_fuse or filter_type == FilterType.BITS:
-            raise NotImplementedError(
-                f"pack filter {filter_type.name} is not ported yet "
-                f"(ROADMAP.md queue 1 item 12: filter/fuse.py, utils/ridset.py)")
+        elif filter_type.is_fuse:
+            from ..filter import fuse
+            bits = 8 if filter_type == FilterType.BFUSE8 else 16
+            pf = [fuse.build(limbs_per_pack[p], bits) for p in range(P)]
+        elif filter_type == FilterType.BITS:
+            # EXACT per-pack membership: a schema asking for BITS must
+            # never silently get a probabilistic filter
+            if wide:
+                raise ValueError(
+                    "FilterType.BITS is limited to <=64-bit keyform "
+                    "types; use bloom/bfuse for wide columns")
+            from ..utils.ridset import RidSet
+            pf = [RidSet.from_array(np.asarray(k, np.uint64))
+                  for k in pack_keys]
         elif filter_type != FilterType.NONE:
             raise ValueError(f"unknown pack filter kind {filter_type!r}")
-        return cls(mn, mx, bw, filter_type)
+        return cls(mn, mx, bw, filter_type, pack_filters=pf)
 
 
 @dataclass
@@ -119,15 +133,28 @@ class SegmentStats:
         return len(self.nrows)
 
 
-def _aux_none(fs: FieldStats, key_limbs: np.ndarray) -> np.ndarray:
-    """bool[P]: the pack's bloom filter proves none of the probed keys
-    (`key_limbs` u32[L, K]) is in pack p."""
+def _aux_none(fs: FieldStats, key_limbs: np.ndarray | None,
+              keys) -> np.ndarray:
+    """bool[P]: the pack's aux filter (bloom/fuse/bits) proves none of
+    the probed keys is in pack p. `keys` (keyform ints) drive the exact
+    BITS probe; `key_limbs` u32[L, K] drive the hash-based kinds."""
     P = len(fs.min_key)
     out = np.zeros(P, bool)
-    if fs.bloom_words is not None:
+    if fs.bloom_words is not None and key_limbs is not None:
         for p in range(P):
             out[p] = not bloom.contains_np(fs.bloom_words[p],
                                            key_limbs).any()
+    elif fs.pack_filters is not None:
+        if fs.filter_type == FilterType.BITS and keys is not None:
+            ku = np.array([int(k) & 0xFFFFFFFFFFFFFFFF for k in
+                           (keys if hasattr(keys, "__len__") else [keys])],
+                          np.uint64)
+            for p in range(P):
+                out[p] = not fs.pack_filters[p].isin(ku).any()
+        elif fs.filter_type.is_fuse and key_limbs is not None:
+            for p in range(P):
+                out[p] = not fs.pack_filters[p].contains_limbs(
+                    key_limbs).any()
     return out
 
 
@@ -138,6 +165,9 @@ def _aux_none_bytes(fs: FieldStats, vals: list) -> np.ndarray:
         for p in range(P):
             out[p] = not bloom.contains_bytes_np(fs.bloom_words[p],
                                                  vals).any()
+    elif fs.pack_filters is not None and fs.filter_type.is_fuse:
+        for p in range(P):
+            out[p] = not fs.pack_filters[p].contains_bytes(vals).any()
     return out
 
 
@@ -171,7 +201,9 @@ def _prune_tree(fs: FieldStats, mode: FilterMode, lo, hi, keys,
         sub = FieldStats(fs.min_key[s:e], fs.max_key[s:e],
                          None if fs.bloom_words is None
                          else fs.bloom_words[s:e],
-                         fs.filter_type, is_prefix=fs.is_prefix)
+                         fs.filter_type, is_prefix=fs.is_prefix,
+                         pack_filters=None if fs.pack_filters is None
+                         else fs.pack_filters[s:e])
         t = prune_leaf(sub, mode, lo, hi, keys, key_limbs, key_bytes)
         all_[s:e] = t.all_
         none[s:e] = t.none
@@ -202,8 +234,9 @@ def prune_leaf(fs: FieldStats, mode: FilterMode, lo=None, hi=None,
     if mode in (FilterMode.EQ, FilterMode.NE):
         c = lo
         none = (np.less(mx, c) | np.greater(mn, c))
-        if key_limbs is not None:
-            none = none | _aux_none(fs, key_limbs)
+        if key_limbs is not None or fs.pack_filters is not None:
+            none = none | _aux_none(fs, key_limbs,
+                                    keys if keys is not None else [lo])
         if key_bytes is not None:
             none = none | _aux_none_bytes(fs, key_bytes)
         all_ = Z if fs.is_prefix else (np.equal(mn, c) & np.equal(mx, c))
@@ -236,8 +269,8 @@ def prune_leaf(fs: FieldStats, mode: FilterMode, lo=None, hi=None,
         # none: every key outside [min, max] (vectorized over packs x keys)
         inside = (np.less_equal.outer(mn, ks) & np.greater_equal.outer(mx, ks))
         none = ~inside.any(axis=1)
-        if key_limbs is not None:
-            none = none | _aux_none(fs, key_limbs)
+        if key_limbs is not None or fs.pack_filters is not None:
+            none = none | _aux_none(fs, key_limbs, keys)
         if key_bytes is not None:
             none = none | _aux_none_bytes(fs, key_bytes)
         # all: single-value pack whose value is in the set

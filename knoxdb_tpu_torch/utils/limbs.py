@@ -21,7 +21,7 @@ from ..types import FieldType
 
 __all__ = [
     "to_keyform", "to_keys64", "from_keyform", "scalar_to_keyform",
-    "keyform_to_scalar", "numpy_dtype",
+    "keyform_to_scalar", "numpy_dtype", "NLIMBS",
 ]
 
 _NP_DTYPES = {
@@ -182,3 +182,18 @@ def keyform_to_scalar(limbs: tuple[int, ...], ft: FieldType):
     arr = np.array([[l] for l in limbs], dtype=np.uint32)
     out = from_keyform(arr, ft)
     return out[0] if not isinstance(out, np.ndarray) or out.ndim else out
+
+
+def NLIMBS(ft: FieldType) -> int:
+    return ft.nlimbs
+
+
+KEY_MIN = 0
+
+
+def keyform_min(ft: FieldType) -> tuple[int, ...]:
+    return tuple(0 for _ in range(ft.nlimbs))
+
+
+def keyform_max(ft: FieldType) -> tuple[int, ...]:
+    return tuple(0xFFFFFFFF for _ in range(ft.nlimbs))

@@ -18,7 +18,11 @@ def test_port_imports_no_jax():
         "for m in ('exec.scan', 'exec.groupby', 'exec.device', 'exec.join',\n"
         "          'ops.group_kernels', 'ops.cuda_build', 'ops.compact',\n"
         "          'ops.sort_kernels', 'ops.group_chunk_kernels',\n"
-        "          'encode.schemes', 'encode.alp', 'exec.rewrite'):\n"
+        "          'encode.schemes', 'encode.alp', 'exec.rewrite',\n"
+        "          'engine.engine', 'engine.table', 'engine.index',\n"
+        "          'engine.enum', 'wal.wal', 'store.kv', 'store.segio',\n"
+        "          'pack.journal', 'exec.oracle', 'schema.wire',\n"
+        "          'utils.ridset', 'utils.native', 'filter.fuse', 'series'):\n"
         "    assert 'knoxdb_tpu_torch.' + m in mods, mods\n"
         "assert 'jax' not in sys.modules and 'knoxdb_tpu' not in sys.modules\n"
         "assert 'torch' in sys.modules\n"
