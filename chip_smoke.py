@@ -7,7 +7,9 @@ Phases, each printed on its own line; any failure raises and the script
 exits nonzero:
   1. card: nvidia-smi's name and power limit, torch's device name;
   2. build: the CUDA kernels of knoxdb_tpu_torch/csrc from source (nvcc,
-     sm_90a), with the seconds it took and ptxas' register report; the SASS
+     sm_90a), with the seconds it took and ptxas' register report; the
+     native host library (native/knox_native.cc, g++; the run fails if it
+     does not build) and its seconds; the SASS
      atomics of the scan and group libraries; the split scan kernels'
      (5a, 5b) ptxas lines and their global loads by width (LDG.E.128 of
      the 16-byte form against LDG.E);
@@ -95,6 +97,17 @@ exits nonzero:
        of 4,194,304 rows (join_side, join_pairs_device,
        rows_at_positions), with no filter and with amount > 0: every
        pair's amount and bal;
+     - the SDK (knoxdb_tpu_torch.knox.open_database on the engine's
+       stores, device cuda), each answer exact against the same oracles:
+       config #1 count() / sum() / aggregate(), entry()'s tree through
+       aggregate(), the OR tree through or_where, order_by(val desc)
+       .limit(100), rows() and stream_batches() at 1.00%, count_distinct
+       exact and LLB (within 3%) under that filter, config #3's group_by
+       sum and var, knox.join of tx and accounts INNER with where= and
+       with limit=, LEFT, and a host-path RIGHT on acct, aid < 40,000 (a
+       reduced size), import_csv of 1,048,576 rows into a new table, and
+       kx stats on the store; the launches of kernels #1, #2, 5a, 5b, #3
+       and #4 under the SDK calls, each > 0;
   5. timing (CUDA events, medians over alternating query variants, with
      the host's launch overhead hidden behind a GPU sleep): each kernel
      and its plain version at the main paths' shapes (scan kernels also
@@ -122,8 +135,9 @@ exits nonzero:
      and idle share of the chunk route and of every float call; the
      engine's insert rows/s, merge and reopen seconds, and the wall and
      device idle share of Table.query (beside SegmentScanner.scan on the
-     same bench rows), group_query, run_series and the tx join, each line
-     with the card's name and power limit. Every kernel's
+     same bench rows), group_query, run_series and the tx join, and each
+     SDK call's wall beside the Table-level wall on the same rows, each
+     line with the card's name and power limit. Every kernel's
      record carries its bound (bytes over the published HBM rate against
      word operations over the published float32 rate; kernel #8 also its
      shared-memory traffic) and, where one PyTorch call computes the same
@@ -607,6 +621,7 @@ def _oracle(data, name, lo):
 
 
 _CYCLES_PER_MS = None
+_NATIVE: dict = {}                  # the native host library's build
 _T0 = time.perf_counter()
 
 
@@ -2591,6 +2606,337 @@ def time_engine(cfg1, grp, txj, sc, queries, card):
     return out
 
 
+# ------------------------------------------------------------- the SDK ---
+# The engine phases' stores opened again through knoxdb_tpu_torch.knox on
+# the card (no new writes but one imported table): the calls a user makes,
+# each against the numpy oracle the engine phase kept, each beside the
+# Table-level wall of phase 5 on the same rows where there is one.
+
+SDK_ITERS = 3                       # timed SDK calls after the checked one
+SDK_MAT_LO = 1000                   # val RANGE (1000, 1655): 1.00% of rows
+LLB_TOL = 0.03                      # LLB: ~0.8% std error (p = 14), 3.7 sd
+RJ = 40_000                         # the host-path RIGHT join: acct, aid < RJ
+CSV_ROWS = 1 << 20
+
+
+def _sdk_open(knox, root, name, dev):
+    return knox.open_database(name, driver="file", path=str(root / name),
+                              device=str(dev), pack_size=PACK_SIZE,
+                              journal_size=2 * ENGINE_BATCH,
+                              background_merge=False)
+
+
+def _sdk_call(what, call, launches, walls, iters=SDK_ITERS):
+    """One SDK call through run_path (its launches added to `launches`),
+    then its median wall over `iters` more calls."""
+    out, ln = run_path(call)
+    for k, v in ln.items():
+        launches[what].setdefault(k, 0)
+        launches[what][k] += v
+    if iters:
+        walls[what] = _wall_ms(lambda i: call(), iters=iters, warmup=0)
+    return out
+
+
+def _nonzero(launches: dict) -> dict:
+    return {k: v for k, v in launches.items() if v}
+
+
+def _i64(col) -> np.ndarray:
+    return np.asarray(list(col), np.int64)
+
+
+def phase_sdk(dev, root, cfg1, lk, rku, table_walls, t_build, card):
+    """knox.open_database on the engine phases' stores (device cuda): config
+    #1 count / sum, entry()'s tree through aggregate(), the OR tree through
+    or_where, top-100 by val, rows() and stream_batches() at 1.00%,
+    count_distinct exact and LLB under that filter, config #3's group_by
+    sum and var, tx join accounts INNER (where=, limit=), LEFT and a
+    host-path RIGHT at a reduced size, import_csv of 1,048,576 rows into
+    a fresh table, and kx stats on the store."""
+    import contextlib
+    import io
+
+    import knoxdb_tpu_torch as KT
+    from knoxdb_tpu_torch.tools import kx as KX
+
+    knox = KT.knox
+    F = knox.F
+    names = ("config1 count+sum", "entry aggregate", "OR tree or_where",
+             "top-100 order_by", "rows 1%", "stream_batches 1%",
+             "count_distinct exact", "count_distinct llb",
+             "group_by config3 sum", "group_by config3 var",
+             "join INNER where", "join INNER limit", "join LEFT",
+             "join RIGHT (host)", "join INNER prefiltered")
+    launches = {n: {} for n in names}
+    walls, laps, t_lap = {}, {}, [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        laps[what] = round(now - t_lap[0], 2)
+        t_lap[0] = now
+    ids, val, bal = cfg1["live"].rows()
+    t0 = time.perf_counter()
+    db = _sdk_open(knox, root, "cfg1", dev)
+    t_open = time.perf_counter() - t0
+    t = db.table("bench")
+    q = cfg1["queries"]
+
+    # config #1, entry(), the OR tree: the engine phase's oracles
+    def agg(what, query, specs, oracle, lo=OR_LO):
+        got = _sdk_call(what, lambda: query().aggregate(*specs), launches,
+                        walls)
+        _count, want = oracle(ids, val, bal, lo)
+        if got != want:
+            raise AssertionError(f"sdk {what}: {got} != {want}")
+        return got
+    a1 = agg("config1 count+sum",
+             lambda: t.query().where(F("val").between(OR_LO, 50000)),
+             [("count", ""), ("sum", "val")], q["config1"][3])
+    n1, s1 = (t.query().where(F("val").between(OR_LO, 50000)).count(),
+              t.query().where(F("val").between(OR_LO, 50000)).sum("val"))
+    if (n1, s1) != (a1[("count", "")], a1[("sum", "val")]):
+        raise AssertionError(f"sdk config1 count(), sum(): {n1} {s1}")
+    agg("entry aggregate",
+        lambda: t.query().where(F("val").between(OR_LO, 50000),
+                                F("bal") > 0),
+        [("count", ""), ("sum", "bal"), ("min", "val"), ("max", "val")],
+        q["entry"][3])
+    agg("OR tree or_where",
+        lambda: t.query().or_where(F("val").between(OR_LO, OR_HI),
+                                   F("bal") < OR_BAL),
+        [("count", ""), ("sum", "val"), ("sum", "id")], q["OR tree"][3])
+
+    top = _sdk_call("top-100 order_by", lambda: t.query().order_by(
+        "val", desc=True).limit(100).select("id", "val").execute(),
+        launches, walls)
+    got_id = np.array([r["id"] for r in top], np.int64)
+    got_v = np.array([r["val"] for r in top], np.uint64)
+    live = cfg1["live"]
+    if not (np.array_equal(got_v, np.sort(val)[::-1][:100])
+            and len(set(got_id.tolist())) == 100
+            and live.alive[got_id].all()
+            and np.array_equal(live.val[got_id], got_v)):
+        raise AssertionError("sdk top-100: differs from numpy")
+    lap("config1 queries and top-100")
+
+    # rows() and stream_batches() at 1.00%, count_distinct under it
+    m = (val >= SDK_MAT_LO) & (val <= SDK_MAT_LO + 655)
+
+    def mat():
+        return t.query().where(F("val").between(SDK_MAT_LO,
+                                                SDK_MAT_LO + 655))
+    rows = _sdk_call("rows 1%", lambda: mat().select("id", "val", "bal")
+                     .rows(), launches, walls)
+    batches = _sdk_call("stream_batches 1%", lambda: list(
+        mat().select("id", "val", "bal").stream_batches()), launches, walls)
+    for what, cols in (("rows", rows), ("stream_batches", {
+            c: np.concatenate([np.asarray(b[c]) for b in batches])
+            for c in ("id", "val", "bal")})):
+        got = _i64(cols["id"])
+        s = np.argsort(got)
+        if not (np.array_equal(got[s], ids[m].astype(np.int64))
+                and np.array_equal(_i64(cols["val"])[s],
+                                   val[m].astype(np.int64))
+                and np.array_equal(_i64(cols["bal"])[s], bal[m])):
+            raise AssertionError(f"sdk {what} 1%: rows differ from numpy")
+    cd = _sdk_call("count_distinct exact",
+                   lambda: mat().count_distinct("bal"), launches, walls,
+                   iters=1)
+    llb = _sdk_call("count_distinct llb",
+                    lambda: mat().count_distinct("bal", exact=False),
+                    launches, walls, iters=1)
+    want_cd = len(np.unique(bal[m]))
+    if cd != want_cd or abs(llb - want_cd) > LLB_TOL * want_cd:
+        raise AssertionError(f"sdk count_distinct: exact {cd}, llb {llb}, "
+                             f"numpy {want_cd}")
+    lap("rows, stream_batches, count_distinct")
+
+    # import_csv into a fresh table of the same database
+    from knoxdb_tpu_torch.schema.schema import Builder
+    from knoxdb_tpu_torch.types import FieldType
+    rng = np.random.default_rng(SEED + 2)
+    cv = rng.integers(0, 1 << 16, CSV_ROWS, dtype=np.uint64)
+    cb = rng.integers(-1 << 40, 1 << 40, CSV_ROWS, dtype=np.int64)
+    csv_path = root / "import.csv"
+    t0 = time.perf_counter()
+    with open(csv_path, "w") as fh:
+        fh.write("val,bal\n")
+        fh.write("\n".join(f"{a},{b}" for a, b in zip(cv.tolist(),
+                                                      cb.tolist())))
+    t_csv_write = time.perf_counter() - t0
+    ct = db.create_table(Builder("imported").pk("id")
+                         .add("val", FieldType.UINT64)
+                         .add("bal", FieldType.INT64).finish())
+    t0 = time.perf_counter()
+    n_imp = ct.import_csv(str(csv_path))
+    t_import = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ct.merge()
+    t_imp_merge = time.perf_counter() - t0
+    mi = cv <= 50000
+    imp = ct.query().where(F("val") <= 50000).aggregate(
+        ("count", ""), ("sum", "bal"))
+    if n_imp != CSV_ROWS or ct.count() != CSV_ROWS or imp != {
+            ("count", ""): int(mi.sum()), ("sum", "bal"): _isum(cb[mi])}:
+        raise AssertionError(f"sdk import_csv: {n_imp} rows, {imp}")
+    counts = {"bench": t.count(), "imported": ct.count()}
+    db.close()
+    lap("import_csv")
+
+    # kx stats on the store, on the card
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = KX.main([str(root / "cfg1"), "stats", "--device", str(dev)])
+    t_kx = time.perf_counter() - t0
+    stats = buf.getvalue().strip().splitlines()
+    for name, n in counts.items():
+        if rc != 0 or not any(ln.startswith(f"{name}: rows={n} ")
+                              for ln in stats):
+            raise AssertionError(f"kx stats: {stats} (want {name} rows={n})")
+    lap("kx stats")
+
+    # config #3: group_by sum and var through the SDK
+    db3 = _sdk_open(knox, root, "cfg3", dev)
+    t3 = db3.table("c3")
+    _sch3, data3 = _cfg3_rows(N_PACKS, G3)
+    g_sum = _sdk_call("group_by config3 sum", lambda: t3.query().where(
+        F("bal") > THR3).group_by("acct").sum("bal"), launches, walls)
+    # var of id (its rebased range fits 32 bits: the moments kernel, #4)
+    # and of bal (41 bits: exec/groupby.group_moments)
+    g_var = _sdk_call("group_by config3 var", lambda: t3.query().where(
+        F("bal") > THR3).group_by("acct").aggregate(("var", "bal"),
+                                                    ("var", "id")),
+        launches, walls)
+    m3 = data3["bal"] > THR3
+    a = data3["acct"][m3].astype(np.int64)
+    cnt = np.bincount(a, minlength=G3)
+    keys = np.flatnonzero(cnt)
+    b3 = data3["bal"][m3]
+    sums = {}
+    for g, v in zip(a.tolist(), b3.tolist()):
+        sums[g] = sums.get(g, 0) + v
+    want_sum = [sums[g] / 10**4 for g in keys.tolist()]
+    c_ = cnt[keys].astype(np.float64)
+
+    def var_of(v, div):
+        f = v.astype(np.float64)
+        s_ = np.bincount(a, weights=f, minlength=G3)[keys]
+        q_ = np.bincount(a, weights=f * f, minlength=G3)[keys]
+        return (q_ - s_ * s_ / c_) / (c_ - 1) / div
+    vars_ok = all(np.allclose(
+        np.asarray(g_var[("var", fld)].tolist(), np.float64),
+        var_of(v, div), rtol=1e-9, atol=0)
+        for fld, v, div in (("bal", b3, 1e8), ("id", data3["id"][m3], 1)))
+    if not (np.array_equal(_i64(g_sum["keys"]), keys)
+            and np.array_equal(g_sum["count"], cnt[keys])
+            and list(g_sum[("sum", "bal")]) == want_sum
+            and np.array_equal(g_var["count"], cnt[keys]) and vars_ok):
+        raise AssertionError("sdk group_by config3: differs from numpy")
+    db3.close()
+    lap("group_by")
+
+    # tx join accounts: INNER with where= and limit=, LEFT, host RIGHT
+    _tx_s, tx, _ac_s, ac = _txacct_rows(lk, rku)
+    dbj = _sdk_open(knox, root, "txacct", dev)
+    ttx, tac = dbj.table("tx"), dbj.table("accounts")
+    on = ("acct", "aid")
+    sel = ("id", "amount", "r_id", "bal")
+
+    def pairs(out):
+        return (_i64(out["id"]) - 1, _i64(out["r_id"]) - 1,
+                {"amount": _i64(out["amount"]), "bal": _i64(out["bal"])})
+    jw = _sdk_call("join INNER where", lambda: knox.join(
+        ttx.query(), tac.query(), on=on, where=F("amount") > 0,
+        select=sel), launches, walls, iters=1)
+    n_pos = _tx_join_check("sdk join INNER where", pairs(jw), tx, ac,
+                           tx["amount"] > 0)
+    jp = _sdk_call("join INNER prefiltered", lambda: knox.join(
+        ttx.query().where(F("amount") > 0), tac.query(), on=on,
+        select=sel), launches, walls, iters=2)
+    _tx_join_check("sdk join INNER prefiltered", pairs(jp), tx, ac,
+                   tx["amount"] > 0)
+    jl = _sdk_call("join INNER limit", lambda: knox.join(
+        ttx.query(), tac.query(), on=on, limit=1000, select=sel),
+        launches, walls, iters=0)
+    li, ri, cols = pairs(jl)
+    if not (jl["__n"] == 1000 and len(set(li.tolist())) == 1000
+            and np.array_equal(tx["acct"][li], ac["aid"][ri])
+            and np.array_equal(cols["amount"], tx["amount"][li])
+            and np.array_equal(cols["bal"], ac["bal"][ri])):
+        raise AssertionError("sdk join INNER limit: rows differ")
+    jleft = _sdk_call("join LEFT", lambda: knox.join(
+        ttx.query(), tac.query(), on=on, how="left", select=("id", "r_id")),
+        launches, walls, iters=0)
+    hit = np.isin(tx["acct"], ac["aid"])
+    li = _i64(jleft["id"]) - 1
+    rmiss = np.array([v is None for v in jleft["r_id"]])
+    ri = np.array([-1 if v is None else int(v) - 1 for v in jleft["r_id"]],
+                  np.int64)
+    if not (jleft["__n"] == len(lk) and np.array_equal(np.sort(li),
+                                                       np.arange(len(lk)))
+            and np.array_equal(rmiss, ~hit[li])
+            and np.array_equal(ac["aid"][ri[~rmiss]], tx["acct"][li[~rmiss]])):
+        raise AssertionError("sdk join LEFT: rows differ")
+    jr = _sdk_call("join RIGHT (host)", lambda: knox.join(
+        ttx.query().where(F("acct") < RJ), tac.query().where(F("aid") < RJ),
+        on=on, how="right", select=("id", "r_id")), launches, walls,
+        iters=0)
+    tl = np.flatnonzero(tx["acct"] < RJ)
+    acs = np.flatnonzero(ac["aid"] < RJ)
+    per = {int(ac["aid"][j]): [] for j in acs}
+    for i in tl:
+        k = int(tx["acct"][i])
+        if k in per:
+            per[k].append(int(i) + 1)
+    want_r = sorted((i, int(j) + 1) for j in acs
+                    for i in (per[int(ac["aid"][j])] or [-1]))
+    got_r = sorted((-1 if a_ is None else int(a_), int(b_))
+                   for a_, b_ in zip(jr["id"], jr["r_id"]))
+    if got_r != want_r:
+        raise AssertionError("sdk join RIGHT: rows differ")
+    dbj.close()
+    lap("joins")
+
+    total = {}
+    for ln in launches.values():
+        for k, v in ln.items():
+            total[k] = total.get(k, 0) + v
+    need(total, ("fused_range_sum_masked", "fused_tree_agg",
+                 "range_mask_count", "masked_plane_popcounts",
+                 "fused_group_partials", "fused_group_moments_partials"),
+         "sdk")
+    beside = {"config1 count+sum": "Table.query config1",
+              "entry aggregate": "Table.query entry",
+              "OR tree or_where": "Table.query OR tree",
+              "group_by config3 sum": "Table.group_query config3",
+              "join INNER prefiltered": "tx join accounts (amount > 0)"}
+    print(f"phase 4 main path sdk ({card}): knox.open_database on the "
+          f"engine stores, device {dev}, open {t_open:.2f} s; "
+          f"{len(ids)} live config1 rows; every answer exact vs the numpy "
+          f"oracle (LLB {llb} vs {want_cd} within {LLB_TOL:.0%}); "
+          f"join INNER where {n_pos} pairs, LEFT {jleft['__n']} rows, "
+          f"RIGHT (acct, aid < {RJ}: a reduced size) {jr['__n']} rows; "
+          f"import_csv {n_imp} rows: write {t_csv_write:.2f} s, import "
+          f"{t_import:.2f} s, merge {t_imp_merge:.2f} s; kx stats "
+          f"{t_kx:.2f} s: {stats}; seconds by part {laps}")
+    for n in names:
+        tw = table_walls.get(beside.get(n), {}).get("wall_ms")
+        print(f"phase 5 sdk {n} ({card}): "
+              + (f"SDK wall {walls[n]:.3f} ms" if n in walls else
+                 "checked once, not timed")
+              + (f" beside Table-level {tw:.3f} ms ({walls[n] / tw:.2f}x)"
+                 if tw and n in walls else "")
+              + f"; launches {_nonzero(launches[n])}")
+    print(f"phase 5 sdk launches under the SDK calls: {total}; native "
+          f"host library g++ {_NATIVE['seconds']:.2f} s; 256-pack bench "
+          f"segment host build with it {t_build:.2f} s")
+    return {"walls_ms": walls, "launches": launches, "total": total,
+            "t_open": t_open, "t_import": t_import, "t_kx": t_kx,
+            "t_build": t_build, "llb": llb, "count_distinct": want_cd}
+
+
 # ------------------------------------- kernels #1-#4, ptxas and SASS ---
 
 def _ptxas_of(log, names):
@@ -2668,10 +3014,17 @@ def time_kernels_1_4(cases, flush, sms):
             r["l2_read_evicted_ms"] = _event_ms(f,
                                                 before=lambda i: flush.sum())
         else:
-            gid, G = sets[0][0], sets[0][-1]
+            gid, words, *vals = sets[0][:-1]
+            G = sets[0][-1]
             r["plan"] = GK.group_tile_plan(gid.numel(), G,
                                            (len(sets[0]) - 3) // 2,
                                            sms).__dict__.copy()
+            # as the kernels' records count it: gid, mask and value words
+            # read once, the count and value partials written once
+            r["bound_ms"], r["bound_by"] = _bound(
+                (gid.numel() + words.numel()
+                 + sum(v.numel() for v in vals)) * 4
+                + (1 + len(vals)) * G * 8, gid.numel() * (2 + len(vals)))
         out[case] = r
         print(f"phase 5 kernels #1-#4 {case} ({kname}): {r}", flush=True)
     return out
@@ -2713,6 +3066,12 @@ def _run(torch, root: Path) -> int:
     print(f"phase 2 build: {time.perf_counter() - t0:.2f} s "
           f"(nvcc {cuda_build.build_info['seconds']:.2f} s, one process per "
           f"source) -> {cuda_build.build_info['library']}")
+    # the native host library (g++): no fallback on the card's host
+    from knoxdb_tpu_torch.utils import native as NT
+    NT.require()
+    _NATIVE.update(NT.build_info)
+    print(f"phase 2 native host library: g++ {_NATIVE['seconds']:.2f} s -> "
+          f"{_NATIVE['library']}")
     for ln in ptxas:
         print(f"  ptxas: {ln}")
     sass = {}
@@ -3111,6 +3470,9 @@ def _run(torch, root: Path) -> int:
     for eng in (cfg1["e"], grp["e3"], grp["e6"], txj["e"]):
         eng.close()
     _mark("phase 5 engine")
+    stages["sdk"] = phase_sdk(dev, root, cfg1, lk, rku, stages["engine"],
+                              t_build, card)
+    _mark("sdk")
     print(json.dumps({"kernels": records, "stream_bytes_per_s": stream,
                       "stages": stages, "card": card, "n_rows": n_rows}))
     print(f"card: {card}")

@@ -1,8 +1,7 @@
 """One-pass column vector analysis feeding compression scheme selection.
 
-Carried over from knoxdb_tpu/encode/analyze.py. The port keeps the numpy
-form of the one-pass statistics (min/max, runs, delta and pack widths);
-it gives the same numbers as the reference's native helper.
+Carried over from knoxdb_tpu/encode/analyze.py: the one-pass statistics
+(min/max, runs, delta and pack widths) come from utils/native.py.
 """
 
 from __future__ import annotations
@@ -11,7 +10,9 @@ from dataclasses import dataclass
 
 import numpy as np
 
-__all__ = ["Context", "analyze_keys", "analyze_u64"]
+from ..utils import native as NT
+
+__all__ = ["Context", "analyze_keys"]
 
 
 @dataclass
@@ -31,30 +32,17 @@ class Context:
     sorted: bool = False
 
 
-def analyze_u64(keys: np.ndarray):
-    """(min, max, num_runs, delta_width, pack_width, sorted) of u64 keys."""
-    mn, mx = int(keys.min()), int(keys.max())
-    runs = 1 + int((keys[1:] != keys[:-1]).sum())
-    if len(keys) > 1:
-        with np.errstate(over="ignore"):
-            d = (keys[1:] - keys[:-1]).view(np.int64)
-            zz = ((d << 1) ^ (d >> 63)).view(np.uint64)
-        dw = int(zz.max()).bit_length()
-        sorted_ = bool((d >= 0).all())
-    else:
-        dw, sorted_ = 0, True
-    return mn, mx, runs, dw, (mx - mn).bit_length(), sorted_
-
-
 def analyze_keys(keys: np.ndarray, want_dict: bool = True) -> Context:
     """keys: u64[N] key-domain values.
 
-    Run/unique arrays are only materialized when the quick stats say
-    RLE/DICT could win."""
+    Fast one-pass stats through utils/native.analyze_u64 (the native C++
+    pass where it builds, numpy else: the same numbers); run/unique
+    arrays are only materialized when the quick stats say RLE/DICT could
+    win."""
     n = len(keys)
     keys = np.ascontiguousarray(keys, np.uint64)
     mn, mx, num_runs, delta_width, pack_width, is_sorted = \
-        analyze_u64(keys)
+        NT.analyze_u64(keys)
 
     run_ends = run_values = None
     if num_runs < n // 4:

@@ -10,6 +10,9 @@ knoxdb_tpu/encode/schemes.py, with the same names and outputs.
 - DICT     codes bitplane-packed + sorted unique values
 - ALP      floats as decimal-scaled ints (encode/alp.py), packed as BITPACK
 
+Bit planes are packed by utils/native.bitplane_pack: the native C++
+transpose where it builds, numpy else (the same words).
+
 The device decodes run on int32-carried u32 words (ops/words.py), plane
 widths 0-64 (a wide column's packs store 64-bit pack-relative keys). Torch
 has no uint64: where the reference holds u64 keys the port holds int64
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 
 from ..ops import words as WD
+from ..utils import native as NT
 
 
 class Scheme(enum.IntEnum):
@@ -111,7 +115,7 @@ def encode_raw(limbs: np.ndarray, n: int, n_pad: int) -> EncodedPack:
 def encode_bitpack(keys: np.ndarray, nlimbs: int, min_key: int, width: int,
                    n_pad: int) -> EncodedPack:
     shifted = keys - np.uint64(min_key)
-    planes = _pack_bitplanes_np(shifted, width, n_pad)
+    planes = NT.bitplane_pack(shifted, width, n_pad)
     return EncodedPack(Scheme.BITPACK, len(keys), nlimbs, width=width,
                        min_key=min_key, planes=planes)
 
@@ -121,7 +125,7 @@ def encode_delta(keys: np.ndarray, nlimbs: int, width: int, n_pad: int) -> Encod
     d[0] = 0
     d[1:] = keys[1:] - keys[:-1]
     zz = _zigzag(d)
-    planes = _pack_bitplanes_np(zz, width, n_pad)
+    planes = NT.bitplane_pack(zz, width, n_pad)
     return EncodedPack(Scheme.DELTA, len(keys), nlimbs, width=width,
                        min_key=int(keys[0]), planes=planes)
 
@@ -151,7 +155,7 @@ def encode_string_dict(values: list, n_pad: int,
     width = max(1, (card - 1).bit_length())
     if width_round:
         width = width_round(width)
-    planes = _pack_bitplanes_np(codes, width, n_pad)
+    planes = NT.bitplane_pack(codes, width, n_pad)
     # prefix keys (8-byte big-endian) for zone maps / ordering hints
     pref = np.array([_prefix_key(b) for b in uniq], np.uint64)
     return EncodedPack(Scheme.DICT, len(vals), 2, width=width, planes=planes,
@@ -172,7 +176,7 @@ def encode_alp(vals: np.ndarray, n_pad: int, width_round=None
     width = int(rel64.max()).bit_length() if len(rel64) else 0
     if width_round:
         width = width_round(width)
-    planes = _pack_bitplanes_np(rel64, width, n_pad)
+    planes = NT.bitplane_pack(rel64, width, n_pad)
     return EncodedPack(Scheme.ALP, len(vals), 2, width=width, min_key=mn,
                        planes=planes, exp=e)
 
@@ -188,7 +192,7 @@ def encode_dict(codes: np.ndarray, unique_limbs: np.ndarray, n: int,
                 dict_keys: np.ndarray | None = None) -> EncodedPack:
     card = unique_limbs.shape[1]
     width = width or max(1, (card - 1).bit_length())
-    planes = _pack_bitplanes_np(codes.astype(np.uint64), width, n_pad)
+    planes = NT.bitplane_pack(codes.astype(np.uint64), width, n_pad)
     k = _ceil_pow2(card)
     vals = np.zeros((nlimbs, k), dtype=np.uint32)
     vals[:, :card] = unique_limbs

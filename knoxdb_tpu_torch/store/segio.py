@@ -14,8 +14,10 @@ every array payload is individually compressed when that shrinks it
 usually compress well) and the per-codec choice is recorded in the array
 header — mirroring the reference's per-block compression byte. Codecs:
   zstd (default when the zstandard module is present — fastest decode,
-  best ratio at level 1), lz4 (utils/native.py: literal-only blocks
-  until the native C++ codec is ported; any LZ4 block decodes), zlib (stdlib fallback/default otherwise), lzma (stdlib,
+  best ratio at level 1), lz4 (utils/native.py: the native C++ block
+  codec, the same blocks as knoxdb_tpu's; literal-only blocks where the
+  library does not build; any LZ4 block decodes), zlib (stdlib
+  fallback/default otherwise), lzma (stdlib,
   high-ratio cold archival). KNOX_SEG_COMPRESS selects
   (zstd|lz4|zlib|lzma|off); the LOAD path decodes every codec
   regardless of the knob, so blobs written under any setting

@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from .ops import scan_kernels as SK
+from ..ops import scan_kernels as SK
 
 __all__ = ["random_tree_case", "misaligned_copy", "split_layouts",
            "split_masks"]

@@ -22,7 +22,11 @@ def test_port_imports_no_jax():
         "          'engine.engine', 'engine.table', 'engine.index',\n"
         "          'engine.enum', 'wal.wal', 'store.kv', 'store.segio',\n"
         "          'pack.journal', 'exec.oracle', 'schema.wire',\n"
-        "          'utils.ridset', 'utils.native', 'filter.fuse', 'series'):\n"
+        "          'utils.ridset', 'utils.native', 'filter.fuse', 'series',\n"
+        "          'knox', 'utils.csvio', 'filter.llb', 'encode.fsst',\n"
+        "          'testing.assert_', 'testing.scenario',\n"
+        "          'testing.kernel_cases', 'tools.kx', 'tools.packview',\n"
+        "          'tools.walview'):\n"
         "    assert 'knoxdb_tpu_torch.' + m in mods, mods\n"
         "assert 'jax' not in sys.modules and 'knoxdb_tpu' not in sys.modules\n"
         "assert 'torch' in sys.modules\n"
