@@ -8,9 +8,25 @@ paths hand them.
 FAMILY is one of
   group  the group-sums kernel (#3-#4, csrc/group_kernels.cu
          knox_group_sums) at config #3's group_scan (G = 1000, 256 packs),
-         config #3c's (G = 65,536, 64 packs) and config #6's series_scan
-         moments (K = 2, 64 packs); each DIR's knox_group_sums must take
-         no launch geometry (commit 3295ac2's);
+         config #3c's (G = 65,536, 64 packs; K = 1, and K = 2 on the same
+         gids with the values' squares), config #6's series_scan moments
+         (K = 2, 64 packs), and past the shared histogram at G =
+         max_shared_groups(K) + 1, 12,000, 20,000, 32,768, 40,000, 49,152
+         and 65,536 for K = 1 and 2 over 4,194,304 rows (uniform gids, 99%
+         masks), and skewed gids at #3c's size (K = 1, G = 65,536; K = 2,
+         G = 20,000): Zipf (s = 1) with the hottest groups at the lowest
+         ids (in the first slice), the same with the ids shuffled, and
+         one group taking every row with all-ones words; past the shared
+         histogram this tree's CLUSTER form also
+         in each cluster size that holds G (8 and 16 CTAs), where the
+         plan runs GLOBAL too. Each DIR is commit
+         c5ef0bc's source (LIMBS and the GLOBAL loop, launch geometry
+         (mode, stages, blocks));
+  sort   the tile sort (#8, csrc/sort_kernels.cu knox_tile_bitonic_sort)
+         on the config #5 join's merged operands at N = 2,097,152 and
+         8,388,608, ntpose 0, and at 8,388,608 with ntpose 1 and 8; each
+         DIR's entry takes this tree's arguments (commit c5ef0bc's body,
+         or a copy of this tree's source with other constants);
   split  the split scan kernels 5a and 5b (csrc/scan_kernels.cu
          knox_range_mask_count, knox_masked_plane_popcounts) at every
          operand set that config #2's OR subtree and fee RANGE, config
@@ -27,9 +43,11 @@ The script builds the family's source of this checkout and of every DIR
 under names of their own in the git-ignored knoxdb_tpu_torch/_build/ab/
 (one nvcc each, started together), checks that every build gives this
 tree's outputs bit for bit on every operand set, and prints their median
-CUDA-event times in turns (the DIRs in order, this tree twice, the DIRs
-in reverse), with ptxas' report of every build and its SASS (atomics for
-group, global loads by width for split). Split kernels are timed warm,
+CUDA-event times in turns (the DIRs and this tree's forced geometries
+in order, this tree twice, the same in reverse), with ptxas' report of every build and its SASS (atomics by
+kernel for group, global loads by width for split). Each group and sort
+case carries its bound and its library call (one index_add_, torch.sort).
+Split kernels are timed warm,
 after a 128 MiB fill (L2 flushed, its dirty lines written back during the
 launch) and after a 128 MiB read (L2 evicted, clean). The last line is
 one JSON object of the results. Needs a CUDA device.
@@ -44,18 +62,23 @@ import sys
 import time
 from pathlib import Path
 
+import numpy as np
+
 import chip_smoke as CS
 
 # family -> (source file, C entry points, kernel names for ptxas / SASS)
 FAMILIES = {
     "group": ("group_kernels.cu", ("knox_group_sums",), ("group_sums",)),
+    "sort": ("sort_kernels.cu", ("knox_tile_bitonic_sort",),
+             ("tile_bitonic_sort",)),
     "split": ("scan_kernels.cu",
               ("knox_range_mask_count", "knox_masked_plane_popcounts"),
               ("range_mask_count_kernel", "masked_popcounts_kernel")),
 }
-# the earlier group kernel's knox_group_sums (no launch geometry)
+# commit c5ef0bc's knox_group_sums: geometry (mode, stages, blocks), mode 0
+# its GLOBAL loop at up to 4 blocks of 1024 rows per SM
 _BASE_GROUP_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 \
-    + [ctypes.c_void_p] * 2
+    + [ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def _label(src_dir: str) -> str:
@@ -103,19 +126,51 @@ def _build(family: str, dirs):
 
 
 def _base_group(fns, args):
-    """An earlier group kernel on a wrapper's operands."""
+    """Commit c5ef0bc's group kernel on a wrapper's operands: its LIMBS
+    plan (the same as this tree's) or, past the shared histogram, its
+    GLOBAL loop."""
     import torch
+    from knoxdb_tpu_torch.ops import group_kernels as GK
     gid, words, *vals, G = args
+    K = len(vals) // 2
+    sms = torch.cuda.get_device_properties(gid.device).multi_processor_count
+    if G <= GK.max_shared_groups(K):
+        p = GK.group_tile_plan(gid.numel(), G, K, sms)
+        geom = (1, p.stages, p.blocks)
+    else:
+        geom = (0, 0, min(-(-gid.numel() // 1024), 4 * sms))
     out = torch.zeros((1 + len(vals), G), dtype=torch.int64,
                       device=gid.device)
     ptrs = [v.data_ptr() for v in vals] + [None] * (4 - len(vals))
     err = fns["knox_group_sums"](
-        gid.data_ptr(), words.data_ptr(), *ptrs, len(vals) // 2,
-        gid.numel(), G, out.data_ptr(),
-        torch.cuda.current_stream().cuda_stream)
+        gid.data_ptr(), words.data_ptr(), *ptrs, K, gid.numel(), G,
+        out.data_ptr(), *geom, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"earlier kernel: cudaError_t {err}")
     return tuple(out.unbind(0))
+
+
+def _variant_group(args, S):
+    """This tree's group kernel in the CLUSTER form, clusters of S CTAs."""
+    from knoxdb_tpu_torch.ops import cuda_build
+    from knoxdb_tpu_torch.ops import group_kernels as GK
+    gid, words, *vals, G = args
+    lib = cuda_build.load()
+    plan = GK.cuda_plan(lib, gid.device, gid.numel(), G, len(vals) // 2, S)
+    return tuple(GK.launch(lib, gid, words, vals, G, plan).unbind(0))
+
+
+def _base_sort(fns, args):
+    """Another build's tile sort on the wrapper's operands."""
+    import torch
+    keys, pay, ntpose = args
+    ko, po = torch.empty_like(keys), torch.empty_like(pay)
+    err = fns["knox_tile_bitonic_sort"](
+        keys.data_ptr(), pay.data_ptr(), ko.data_ptr(), po.data_ptr(),
+        keys.numel(), ntpose, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"earlier sort: cudaError_t {err}")
+    return ko, po
 
 
 def _base_split(fns, name, args):
@@ -149,14 +204,73 @@ def _base_split(fns, name, args):
     return out
 
 
+def _k2_of(args):
+    """K = 2 operands on K = 1 ones, as phase 3 of chip_smoke builds them:
+    the low words, a zero high word and the squares' halves."""
+    import torch
+    from knoxdb_tpu_torch.exec import groupby as GB
+    gid, words, vlo, _vhi, G = args
+    return (gid, words, vlo, torch.zeros_like(vlo),
+            *GB.square_halves(vlo), G)
+
+
+def _sweep_ops(dev, G, K, rows=1 << 22):
+    """Past the shared histogram: uniform gids in [0, G), a 99% mask,
+    random value words (K = 2: the squares of the low words)."""
+    import torch
+    from knoxdb_tpu_torch.ops import bitset as BS
+    from knoxdb_tpu_torch.ops import words as WD
+    rng = np.random.default_rng(G * 2 + K)
+    P, N = rows // CS.PACK_SIZE, CS.PACK_SIZE
+    gid = torch.from_numpy(rng.integers(0, G, (P, N)).astype(np.int32)) \
+        .to(dev)
+    words = BS.pack_mask(torch.from_numpy(rng.random((P, N)) < 0.99)
+                         .to(dev))
+    vlo, vhi = (WD.to_words(rng.integers(0, 1 << 32, (P, N),
+                                         dtype=np.uint64)
+                            .astype(np.uint32), dev) for _ in range(2))
+    args = (gid, words, vlo, vhi, G)
+    return args if K == 1 else _k2_of(args)
+
+
+def _skew_ops(dev, G, K, kind, rows=1 << 22):
+    """Skewed gids in [0, G) (99% masks, random value words, K = 2 the
+    squares): "zipf", rank k drawn with weight 1 / (k + 1) and group k the
+    k-th hottest; "zipf shuffled", the same groups under a random
+    permutation; "one group", every row in group G - 1 with all-ones
+    words and every mask bit set."""
+    import torch
+    from knoxdb_tpu_torch.ops import bitset as BS
+    from knoxdb_tpu_torch.ops import words as WD
+    rng = np.random.default_rng(G * 5 + K)
+    P, N = rows // CS.PACK_SIZE, CS.PACK_SIZE
+    if kind == "one group":
+        gid = torch.full((P, N), G - 1, dtype=torch.int32, device=dev)
+        ones = torch.full((P, N), -1, dtype=torch.int32, device=dev)
+        words = torch.full((P, N // 32), -1, dtype=torch.int32, device=dev)
+        return (gid, words, *[ones] * (2 * K), G)
+    w = 1.0 / np.arange(1, G + 1)
+    g = rng.choice(G, size=(P, N), p=w / w.sum())
+    if kind == "zipf shuffled":
+        g = rng.permutation(G)[g]
+    gid = torch.from_numpy(g.astype(np.int32)).to(dev)
+    words = BS.pack_mask(torch.from_numpy(rng.random((P, N)) < 0.99)
+                         .to(dev))
+    vlo, vhi = (WD.to_words(rng.integers(0, 1 << 32, (P, N),
+                                         dtype=np.uint64)
+                            .astype(np.uint32), dev) for _ in range(2))
+    args = (gid, words, vlo, vhi, G)
+    return args if K == 1 else _k2_of(args)
+
+
 def _group_cases(dev, libs):
     """case -> (kernel name, [{build: call()} per operand set], extra
     record fields), the operands captured from the wrappers as the main
-    paths hand them over."""
-    import torch
+    paths hand them over, then the sweep past the shared histogram."""
     from knoxdb_tpu_torch.exec import groupby as GB
     from knoxdb_tpu_torch.exec.device import DeviceSegment
     from knoxdb_tpu_torch.exec.scan import SegmentScanner
+    from knoxdb_tpu_torch.ops import cuda_build
     from knoxdb_tpu_torch.ops import group_kernels as GK
 
     sets = {}
@@ -164,29 +278,82 @@ def _group_cases(dev, libs):
                            ("config3c", CS.PACKS_SMALL, 1 << 16)):
         sch, _data, seg, _t = CS._cfg3_segment(packs, G)
         sc = SegmentScanner(DeviceSegment(seg, dev))
-        sets[name] = ("fused_group_partials", [CS._capture(
+        sets[name] = [CS._capture(
             GK, "fused_group_partials",
             lambda t=t: sc.group_scan(t, "acct", ["bal"], minmax=False))
-            for t in (CS._gt_tree(sch, "bal", CS.THR3 + k) for k in (0, 1))])
+            for t in (CS._gt_tree(sch, "bal", CS.THR3 + k) for k in (0, 1))]
+    sets["config3c K=2"] = [_k2_of(a) for a in sets["config3c"]]
     _sch6, _data6, seg6, _t = CS._cfg6_segment(CS.PACKS_SMALL)
     sc6 = SegmentScanner(DeviceSegment(seg6, dev))
     plans = [GB.plan_buckets(sc6.d, "ts", CS.T6 + k, CS.IV6, CS.G6)
              for k in (0, 1)]
-    sets["config6"] = ("fused_group_moments_partials", [CS._capture(
+    sets["config6"] = [CS._capture(
         GK, "fused_group_moments_partials",
         lambda p=p: sc6.series_scan(None, "ts", {"val": ("moments",)}, p))
-        for p in plans])
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        for p in plans]
+    for K in (1, 2):
+        for G in (GK.max_shared_groups(K) + 1, 12000, 20000, 32768, 40000,
+                  49152, 1 << 16):
+            sets[f"sweep K={K} G={G}"] = [_sweep_ops(dev, G, K)]
+    for K, G in ((1, 1 << 16), (2, 20000)):
+        for kind in ("zipf", "zipf shuffled", "one group"):
+            sets[f"skew K={K} G={G} {kind}"] = [_skew_ops(dev, G, K, kind)]
+    lib = cuda_build.load()
     out = {}
-    for case, (kname, ops) in sets.items():
-        kf = getattr(GK, kname)
+    for case, ops in sets.items():
+        K = (len(ops[0]) - 3) // 2
+        kf = GK.fused_group_partials if K == 1 \
+            else GK.fused_group_moments_partials
         gid, G = ops[0][0], ops[0][-1]
-        plan = GK.group_tile_plan(gid.numel(), G, (len(ops[0]) - 3) // 2,
-                                  sms).__dict__.copy()
-        out[case] = (kname, [
+        plan = GK.cuda_plan(lib, dev, gid.numel(), G, K)
+        variants = {}
+        if G > GK.max_shared_groups(K):
+            # the CLUSTER form at both sizes, also where the plan runs GLOBAL
+            variants = {
+                f"cluster S={S} rc={GK.cluster_shape(G, K, S)[2]}": S
+                for S in (8, 16) if GK.cluster_shape(G, K, S)}
+        nbytes, nops = CS._group_need(ops[0])
+        bound_ms, bound_by = CS._bound(nbytes, nops)
+        extra = {"plan": plan.__dict__.copy(), "bytes": nbytes,
+                 "bound_ms": bound_ms, "bound_by": bound_by}
+        if case.startswith(("config3c", "skew")):
+            extra["library_ms"] = CS._group_library_ms(ops[0])
+        out[case] = (kf.__name__, [
             {"new": lambda a=a, kf=kf: kf(*a),
              **{k: lambda a=a, f=f: _base_group(f, a)
-                for k, f in libs.items()}} for a in ops], {"plan": plan})
+                for k, f in libs.items()},
+             **{k: lambda a=a, v=v: _variant_group(a, v)
+                for k, v in variants.items()}} for a in ops], extra)
+    return out
+
+
+def _sort_cases(dev, libs):
+    """Kernel #8 on the config #5 join's merged (key, tagged id) operands
+    (chip_smoke._merged_operands at nl = nr = 4,194,304), with its bound
+    (each pair read once and written once) and torch.sort (stable, the
+    payload gathered: the join's own sort) as its library call."""
+    import torch
+    from knoxdb_tpu_torch.ops import sort_kernels as S8
+    lk, rk, _rku = CS._cfg5_keys(CS.NL5)
+    kops, pops = CS._merged_operands(lk, rk, dev)
+    out = {}
+    for n, nt in ((32 * S8.TILE, 0), (kops.numel(), 0), (kops.numel(), 1),
+                  (kops.numel(), 8)):
+        k, p = kops[:n], pops[:n]
+        k64 = k.long() & 0xFFFFFFFF
+
+        def lib_sort(i, k64=k64, p=p):
+            s = torch.sort(k64, stable=True)
+            return s.values, p[s.indices]
+
+        bound_ms, bound_by = CS._bound(16 * n, 0)
+        out[f"N={n} ntpose={nt}"] = ("tile_bitonic_sort", [
+            {"new": lambda a=(k, p, nt): S8.tile_bitonic_sort(*a),
+             **{lab: lambda a=(k, p, nt), f=f: _base_sort(f, a)
+                for lab, f in libs.items()}}],
+            {"n": n, "ntpose": nt, "bytes": 16 * n, "bound_ms": bound_ms,
+             "bound_by": bound_by,
+             "library_ms": CS._event_ms(lib_sort, iters=20)})
     return out
 
 
@@ -269,7 +436,8 @@ def main() -> int:
     import torch
     if not torch.cuda.is_available() or len(sys.argv) < 3 \
             or sys.argv[1] not in FAMILIES:
-        print("ab_kernels: needs a CUDA device, FAMILY (group or split) and "
+        print("ab_kernels: needs a CUDA device, FAMILY (group, sort or split) "
+              "and "
               "one DIR or more (see the docstring)", file=sys.stderr)
         return 1
     from knoxdb_tpu_torch.ops import cuda_build
@@ -284,24 +452,29 @@ def main() -> int:
     names = FAMILIES[family][2]
     ptxas = {k: CS._ptxas_of(log, names) for k, (_so, log) in built.items()}
     sass = {k: (CS._sass_loads(so, names) if family == "split"
-                else CS._sass_atomics(so))
+                else CS._sass_atomics(so, names))
             for k, (so, _log) in built.items()}
     print(f"ptxas: {ptxas}\nSASS "
           f"{'global loads' if family == 'split' else 'atomics'}: {sass}")
 
-    cases = (_split_cases if family == "split" else _group_cases)(dev, libs)
-    order = list(libs) + ["new", "new"] + list(reversed(libs))
+    cases = {"split": _split_cases, "group": _group_cases,
+             "sort": _sort_cases}[family](dev, libs)
+    others = list(dict.fromkeys(k for _n, sets, _e in cases.values()
+                                for k in sets[0] if k != "new"))
+    order = others + ["new", "new"] + list(reversed(others))
     flush = torch.empty((128 << 20) // 4, dtype=torch.int32, device=dev)
     results = {}
     for case, (kname, sets, extra) in cases.items():
         for s in sets:
             want = s["new"]()
-            err = max(CS._max_err(s[k](), want) for k in libs)
+            err = max(CS._max_err(s[k](), want) for k in s)
             if err:
                 raise AssertionError(f"{case}: a build differs by {err}")
         turns = {k: {"warm": [], "l2_flushed": [], "l2_read_evicted": []}
-                 for k in ["new", *libs]}
+                 for k in sets[0]}
         for k in order:
+            if k not in sets[0]:
+                continue
             f = lambda i, k=k: sets[i % len(sets)][k]()    # noqa: E731
             turns[k]["warm"].append(CS._event_ms(f, iters=30))
             if family == "split":

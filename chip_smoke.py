@@ -17,13 +17,17 @@ exits nonzero:
      card, bit for bit. Scan kernels: random planes at widths 0-64, P = 64,
      W = 2048, 1-3 leaves, sum and min/max specs and an empty pack; P = 1
      and 3 with W = 33 and 2048, and rows passing only in a pack's last
-     words. Group kernels: 4,194,304 rows at G = 1, 200, 1000, 8192 and
-     65,536 (LIMBS and GLOBAL), with invalid gids, 70% masks and all-ones
-     values; the moments kernel with the squares of values up to
-     2^32 - 1; G at the shared threshold and one past it, and all-ones
-     words on every row of every block's 65,536-row tile.
-     The tile sort (kernel #8): 4 tiles of keys in [0, 8) and 32 tiles
-     of full-range u32 keys, ntpose 0 and 8. The split scan kernels (range_mask_count,
+     words. Group kernels: 4,194,304 rows at G = 1, 200, 1000, 4739,
+     8192, 9137, 20,000 and 65,536 for K = 1 and 2 (LIMBS, CLUSTER and
+     GLOBAL as the plan picks them; past the shared histogram also the
+     CLUSTER form forced into clusters of 8 and 16 CTAs), with invalid
+     gids, 70% masks and all-ones values; the moments kernel with the
+     squares of values up to 2^32 - 1; G at the shared threshold and one
+     past it, all-ones words on every row of every block's 65,536-row
+     tile, and one group of 65,536 taking every row with all-ones words
+     (a wrap on every add) in the CLUSTER form.
+     The tile sort (kernel #8): 1 and 4 tiles of keys in [0, 8) and 32
+     tiles of full-range u32 keys, ntpose 0, 1 and 8. The split scan kernels (range_mask_count,
      masked_plane_popcounts): widths 0, 1, 16, 33 and 64 at 37 packs, every
      combination of the five flag words, random, empty, full and absent
      incoming masks, and the one-leaf kernel and both split kernels on the
@@ -50,7 +54,9 @@ exits nonzero:
        0xC0FFEE, G = 1000, the 99%-pass `bal GT` filter) at 256 x 65,536
        rows, group_scan with minmax False and True: every group's count,
        sum, min and max;
-     - group-by config #3c: G = 65,536 at 64 packs, minmax False;
+     - group-by config #3c: G = 65,536 at 64 packs, minmax False, the
+       group kernel in its CLUSTER form (the plan's mode and the launch
+       counter checked);
      - series, config #6 (bench_suite.py:438-455, 1024 buckets of 64):
        series_scan moments at 64 packs, counts, sums and sums of squares;
      - the chunk route: group_count_chunks on the operands group_scan hands
@@ -139,13 +145,17 @@ exits nonzero:
      SDK call's wall beside the Table-level wall on the same rows, each
      line with the card's name and power limit. Every kernel's
      record carries its bound (bytes over the published HBM rate against
-     word operations over the published float32 rate; kernel #8 also its
-     shared-memory traffic) and, where one PyTorch call computes the same
-     function, that call's time. Kernels #1-#4 at the operands of config
-     #1, entry(), config #2's source AND, config #3, #3c and #6, warm and
-     (scan) L2-flushed, with the group kernel's plan (form, ring stages,
-     blocks, tile rows), ptxas' registers, shared memory and spills, and
-     the SASS atomics of the scan and group libraries.
+     word operations over the published float32 rate; kernel #8 also the
+     first body's shared-memory traffic, as a note) and, where one
+     PyTorch call computes the same function, that call's time; the
+     group kernel's CLUSTER form at config #3c has a record of its own.
+     Kernels #1-#4 at the operands of config #1, entry(), config #2's
+     source AND, config #3, #3c (K = 1, and K = 2 on its gids with the
+     values' squares) and #6, warm and (scan) L2-flushed, with the group
+     kernel's plan on this card (form, ring stages, blocks, cluster size,
+     slice, chunks a round), the body it runs with that body's ptxas
+     registers, shared memory and spills and SASS atomics, and at #3c
+     one index_add_; the SASS atomics of the scan and group libraries.
 
 The last three lines are the kernels' JSON record, the card, and
 {"ok": true, "device": {...}}. Needs a CUDA device and the repository;
@@ -431,17 +441,46 @@ def _split_edges(dev, rng):
 
 
 def phase_group_kernels_vs_plain(dev):
-    """Both group kernels against their plain versions at 4,194,304 rows."""
+    """The group kernel's three forms against their plain versions at
+    4,194,304 rows, bit for bit."""
     import torch
     from knoxdb_tpu_torch.exec import groupby as GB
     from knoxdb_tpu_torch.ops import bitset as BS
+    from knoxdb_tpu_torch.ops import cuda_build
     from knoxdb_tpu_torch.ops import group_kernels as GK
     from knoxdb_tpu_torch.ops import words as WD
 
+    lib = cuda_build.load()
     rng = np.random.default_rng(GROUP_SEED)
     P, N = 64, PACK_SIZE
     ncase = 0
-    for G in (1, 200, 1000, 8192, 65536):
+    forms = set()
+
+    def check(what, fn, ref, args, G, K, cluster=None):
+        """The wrapper (or the CLUSTER form in clusters of `cluster` CTAs)
+        against the plain version; returns the form that ran."""
+        nonlocal ncase
+        if cluster:
+            plan = GK.cuda_plan(lib, dev, args[0].numel(), G, K, cluster)
+            got = tuple(GK.launch(lib, args[0], args[1], args[2:], G, plan)
+                        .unbind(0))
+        else:
+            plan = GK.cuda_plan(lib, dev, args[0].numel(), G, K)
+            got = fn(*args, G)
+        err = _max_err(got, ref(*args, G))
+        if err:
+            raise AssertionError(f"group kernel {what} K={K} G={G} "
+                                 f"{plan.mode} S={cluster}: max abs err {err}")
+        ncase += 1
+        forms.add((plan.mode, K))
+        return plan.mode
+
+    fns = {1: (GK.fused_group_partials, GK.fused_group_partials_torch),
+           2: (GK.fused_group_moments_partials,
+               GK.fused_group_moments_partials_torch)}
+    cases = sorted({1, 200, 1000, 8192, 20000, 65536,
+                    GK.max_shared_groups(1) + 1, GK.max_shared_groups(2) + 1})
+    for G in cases:
         gid = torch.from_numpy(rng.integers(-2, G + 3, (P, N))
                                .astype(np.int32)).to(dev)
         mask = torch.from_numpy(rng.random((P, N)) < 0.7).to(dev)
@@ -450,62 +489,68 @@ def phase_group_kernels_vs_plain(dev):
             .astype(np.uint32)
         vals[:, :, :256] = 0xFFFFFFFF                  # carry stress
         vlo, vhi = (WD.to_words(v, dev) for v in vals)
-        err = _max_err(GK.fused_group_partials(gid, words, vlo, vhi, G),
-                       GK.fused_group_partials_torch(gid, words, vlo, vhi, G))
         # moments: r < 2^32 (C1 = 4 chunks, so rhi = 0) and its square
-        q = GB.square_halves(vlo)
-        zero = torch.zeros_like(vhi)
-        err = max(err, _max_err(
-            GK.fused_group_moments_partials(gid, words, vlo, zero, *q, G),
-            GK.fused_group_moments_partials_torch(gid, words, vlo, zero,
-                                                  *q, G)))
-        if err:
-            raise AssertionError(f"group kernels at G={G}: max abs err {err}")
-        ncase += 2
-        mode = GK.group_tile_plan(P * N, G, 1).mode
-        if mode != ("global" if G > GK.max_shared_groups(1) else "limbs"):
-            raise AssertionError(f"G={G}: plan mode {mode}")
-    # the shared / global switch, and the counters' bound: one group and
-    # all-ones words on every row of every block's 65,536-row tile
+        k2 = (gid, words, vlo, torch.zeros_like(vhi), *GB.square_halves(vlo))
+        for K, args in ((1, (gid, words, vlo, vhi)), (2, k2)):
+            mode = check("random", *fns[K], args, G, K)
+            want = "limbs" if G <= GK.max_shared_groups(K) else \
+                GK.group_tile_plan(P * N, G, K).mode
+            if mode != want or (G in (20000, GK.max_shared_groups(K) + 1)
+                                and mode != "cluster"):
+                raise AssertionError(f"K={K} G={G}: plan mode {mode}")
+            for S in (8, 16):          # every cluster size that holds G
+                if G > GK.max_shared_groups(K) and GK.cluster_shape(G, K, S):
+                    check("random", *fns[K], args, G, K, cluster=S)
+    # the shared / cluster switch, and the counters' bounds: one group and
+    # all-ones words on every row (LIMBS: of every block's 65,536-row
+    # tile; CLUSTER: every add wraps, into the last group of the last
+    # slice)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     nrows = sms * GK.BLOCKS_PER_SM * GK.LIMB_CHUNKS * GK.CHUNK_ROWS
     ones = torch.full((4, nrows // 4), -1, dtype=torch.int32, device=dev)
     full = torch.full((4, nrows // 128), -1, dtype=torch.int32, device=dev)
     g0 = torch.zeros((4, nrows // 4), dtype=torch.int32, device=dev)
-    for K, fn, ref in ((1, GK.fused_group_partials,
-                        GK.fused_group_partials_torch),
-                       (2, GK.fused_group_moments_partials,
-                        GK.fused_group_moments_partials_torch)):
+    for K in (1, 2):
+        fn, ref = fns[K]
         gmax = GK.max_shared_groups(K)
         for G in (gmax, gmax + 1):
             gid = torch.from_numpy(rng.integers(-2, G + 3, (P, N))
                                    .astype(np.int32)).to(dev)
             a = [WD.to_words(rng.integers(0, 1 << 32, (P, N), dtype=np.uint64)
                              .astype(np.uint32), dev) for _ in range(2 * K)]
-            mode = GK.group_tile_plan(P * N, G, K).mode
-            if mode != ("limbs" if G == gmax else "global"):
+            words = BS.pack_mask(torch.from_numpy(rng.random((P, N)) < 0.7)
+                                 .to(dev))
+            mode = check("threshold", fn, ref, (gid, words, *a), G, K)
+            if mode != ("limbs" if G == gmax else "cluster"):
                 raise AssertionError(f"K={K} G={G}: plan mode {mode}")
-            err = _max_err(fn(gid, words, *a, G), ref(gid, words, *a, G))
-            if err:
-                raise AssertionError(f"group kernel K={K} G={G}: {err}")
-            ncase += 1
         plan = GK.group_tile_plan(nrows, 1, K, sms)
         if plan.mode != "limbs" or plan.blocks * plan.tile_rows != nrows:
             raise AssertionError(f"all-ones tiles: plan {plan}")
-        got = fn(g0, full, *[ones] * (2 * K), 1)
-        want = ref(g0, full, *[ones] * (2 * K), 1)
-        if _max_err(got, want) or int(want[1][0]) != nrows * 0xFFFFFFFF:
+        args = (g0, full, *[ones] * (2 * K))
+        want = ref(*args, 1)
+        if _max_err(fn(*args, 1), want) \
+                or int(want[1][0]) != nrows * 0xFFFFFFFF:
             raise AssertionError(f"group kernel K={K}: the all-ones tiles "
                                  f"differ")
         ncase += 1
+        G = 1 << 16
+        last = torch.full((P, N), G - 1, dtype=torch.int32, device=dev)
+        args = (last, full[:, :P * N // 128].reshape(P, N // 32),
+                *[ones.reshape(-1)[:P * N].reshape(P, N)] * (2 * K))
+        check("one group, all ones", fn, ref, args, G, K,
+              cluster=GK.cluster_shape(G, K)[0])
     del ones, full, g0
     torch.cuda.synchronize()
     print(f"phase 3 group kernel=plain: {ncase} cases bit-identical "
-          f"({P * N} rows, G = 1, 200, 1000, 8192, 65536; gids in [-2, G+3), "
-          f"70% masks, all-ones values, squares of values up to 2^32 - 1; "
-          f"G at the shared threshold and one past it; all-ones words on "
-          f"every row of every block's 65,536-row tile, {nrows} rows, "
-          f"G = 1)")
+          f"({P * N} rows, G = {', '.join(map(str, cases))}, K = 1 and 2, "
+          f"each past the shared histogram also forced into clusters of 8 "
+          f"and 16 CTAs where they hold G; gids in [-2, G+3), 70% masks, "
+          f"all-ones values, "
+          f"squares of values up to 2^32 - 1; G at the shared threshold and "
+          f"one past it; all-ones words on every row of every block's "
+          f"65,536-row tile, {nrows} rows, G = 1; one group (65,535 of "
+          f"65,536) taking every row with all-ones words in the CLUSTER "
+          f"form; forms {sorted(forms)})")
 
 
 def phase_chunk_kernel_vs_plain(dev):
@@ -1233,21 +1278,21 @@ TAGBIT = 1 << 31
 
 def phase_sort_kernel_vs_plain(dev):
     """Kernel #8 against its plain version, bit for bit: keys from the
-    probe's default_rng(3), payload arange; 4 tiles of keys in [0, 8)
-    (ties everywhere) and 32 tiles of full-range u32 keys; ntpose 0 and 8
-    (msort_probe.py:132-134)."""
+    probe's default_rng(3), payload arange; 1 and 4 tiles of keys in
+    [0, 8) (ties everywhere) and 32 tiles of full-range u32 keys; ntpose
+    0 and 8 (msort_probe.py:132-134), and 1."""
     import torch
     from knoxdb_tpu_torch.ops import sort_kernels as S8
     from knoxdb_tpu_torch.ops import words as WD
 
     rng = np.random.default_rng(3)
     ncase = 0
-    for B, krange in ((4, 8), (32, 1 << 32)):
+    for B, krange in ((1, 8), (4, 8), (32, 1 << 32)):
         n = B * S8.TILE
         keys = WD.to_words(rng.integers(0, krange, n, dtype=np.uint64)
                            .astype(np.uint32), dev)
         pay = torch.arange(n, dtype=torch.int32, device=dev)
-        for ntpose in (0, 8):
+        for ntpose in (0, 1, 8):
             got = S8.tile_bitonic_sort(keys, pay, ntpose)
             err = _max_err(got, S8.tile_bitonic_sort_torch(keys, pay, ntpose))
             if err:
@@ -1256,8 +1301,8 @@ def phase_sort_kernel_vs_plain(dev):
             ncase += 1
     torch.cuda.synchronize()
     print(f"phase 3 tile sort kernel=plain: {ncase} cases bit-identical "
-          f"(4 tiles of keys in [0, 8), 32 tiles of full-range u32 keys, "
-          f"payload arange, ntpose 0 and 8)")
+          f"(1 and 4 tiles of keys in [0, 8), 32 tiles of full-range u32 "
+          f"keys, payload arange, ntpose 0, 1 and 8)")
 
 
 def _cfg5_keys(nl: int):
@@ -2969,14 +3014,22 @@ def _sass(so_path):
                           text=True, timeout=120).stdout
 
 
-def _sass_atomics(so_path):
+def _sass_atomics(so_path, names=None):
     """Counts of the shared / global atomic instructions in a library's
-    SASS, or None without cuobjdump."""
+    SASS (with `names`, per kernel whose mangled name holds one of them),
+    or None without cuobjdump."""
     import collections
     import re
     text = _sass(so_path)
-    return None if text is None else dict(collections.Counter(re.findall(
-        r"\b((?:ATOMS|ATOMG|ATOM|REDG|RED)\.[A-Z0-9_.]+)", text)))
+    if text is None:
+        return None
+    count = lambda t: dict(collections.Counter(re.findall(    # noqa: E731
+        r"\b((?:ATOMS|ATOMG|ATOM|REDG|REDAS|RED)\.[A-Z0-9_.]+)", t)))
+    if names is None:
+        return count(text)
+    return {part.split(None, 1)[0]: count(part)
+            for part in text.split("Function : ")[1:]
+            if any(n in part.split(None, 1)[0] for n in names)}
 
 
 def _sass_loads(so_path, names):
@@ -2997,10 +3050,50 @@ def _sass_loads(so_path, names):
     return out
 
 
-def time_kernels_1_4(cases, flush, sms):
+def _group_need(args):
+    """(bytes, word operations) the group kernel's function needs on a
+    wrapper's operands: gid, the mask words and every value word read
+    once, the count and value partials written once."""
+    gid, words, *vals = args[:-1]
+    G = args[-1]
+    nbytes = (gid.numel() + words.numel()
+              + sum(v.numel() for v in vals)) * 4 + (1 + len(vals)) * G * 8
+    return nbytes, gid.numel() * (2 + len(vals))
+
+
+def _group_library_ms(args, iters=20):
+    """The library route on a group kernel's operands: ONE index_add_ of
+    the count and every value half into int64[1 + 2K, G], its operands
+    made outside the timed window."""
+    import torch
+    from knoxdb_tpu_torch.ops import bitset as BS
+    from knoxdb_tpu_torch.ops import words as WD
+    gid, words, *vals = args[:-1]
+    G = args[-1]
+    ok = BS.unpack_mask(words) & (gid >= 0) & (gid < G)
+    src = torch.stack([ok.to(torch.int64)]
+                      + [WD.u32_to_i64(v) * ok for v in vals]) \
+        .reshape(1 + len(vals), -1)
+    at = torch.where(ok, gid, 0).reshape(-1).long()
+    return _event_ms(
+        lambda i: torch.zeros((src.shape[0], G), dtype=torch.int64,
+                              device=gid.device).index_add_(1, at, src),
+        iters=iters)
+
+
+_GROUP_BODIES = {"limbs": "group_sums_kernel",
+                 "cluster": "group_sums_cluster_kernel",
+                 "global": "group_sums_global_kernel"}
+
+
+def time_kernels_1_4(cases, flush, group_build):
     """Kernels #1-#4 at the main paths' operands, warm and (scan kernels)
-    with L2 flushed, with the group kernel's plan. cases: name -> (kernel
-    name, [operand sets])."""
+    with L2 flushed; for the group kernel its plan on this card, its
+    bound, the body it runs with that body's ptxas line and SASS atomics
+    (group_build: {"ptxas": {mangled: line}, "sass": {mangled: counts}}),
+    and at config #3c the library call. cases: name -> (kernel name,
+    [operand sets])."""
+    from knoxdb_tpu_torch.ops import cuda_build
     from knoxdb_tpu_torch.ops import group_kernels as GK
     from knoxdb_tpu_torch.ops import scan_kernels as SK
     out = {}
@@ -3014,17 +3107,20 @@ def time_kernels_1_4(cases, flush, sms):
             r["l2_read_evicted_ms"] = _event_ms(f,
                                                 before=lambda i: flush.sum())
         else:
-            gid, words, *vals = sets[0][:-1]
-            G = sets[0][-1]
-            r["plan"] = GK.group_tile_plan(gid.numel(), G,
-                                           (len(sets[0]) - 3) // 2,
-                                           sms).__dict__.copy()
-            # as the kernels' records count it: gid, mask and value words
-            # read once, the count and value partials written once
-            r["bound_ms"], r["bound_by"] = _bound(
-                (gid.numel() + words.numel()
-                 + sum(v.numel() for v in vals)) * 4
-                + (1 + len(vals)) * G * 8, gid.numel() * (2 + len(vals)))
+            gid, G = sets[0][0], sets[0][-1]
+            plan = GK.cuda_plan(cuda_build.load(), gid.device, gid.numel(),
+                                G, (len(sets[0]) - 3) // 2)
+            body = _GROUP_BODIES[plan.mode]
+            K = (len(sets[0]) - 3) // 2
+            r["plan"] = plan.__dict__.copy()
+            r["body"] = body
+            for key in ("ptxas", "sass"):
+                r[f"{key}_body"] = {k: v for k, v in
+                                    (group_build.get(key) or {}).items()
+                                    if body in k and f"ILi{K}E" in k}
+            r["bound_ms"], r["bound_by"] = _bound(*_group_need(sets[0]))
+            if case.startswith("config3c"):
+                r["library_ms"] = _group_library_ms(sets[0])
         out[case] = r
         print(f"phase 5 kernels #1-#4 {case} ({kname}): {r}", flush=True)
     return out
@@ -3149,9 +3245,18 @@ def _run(torch, root: Path) -> int:
         _gt_tree(sch3c, "bal", THR3), "acct", ["bal"], minmax=False))
     need(launches, ("fused_tree_agg", "fused_group_partials"), "config3c")
     nsel = _cfg3_check("config3c", data3c, THR3, out, False)
+    plan3c = GK.cuda_plan(cuda_build.load(), dev, seg3c.nrows_total,
+                          out[0].G, 1)
+    if plan3c.mode != "cluster":
+        raise AssertionError(f"config3c: group kernel form {plan3c.mode}")
+    group_launches["fused_group_partials[cluster]"] = \
+        launches["fused_group_partials"]
     print(f"phase 4 main path config3c group_scan(minmax=False): "
           f"{seg3c.nrows_total} rows, G={out[0].G}, {nsel} rows pass, host build "
-          f"{t_build3c:.2f} s; every count and sum exact; launches {launches}")
+          f"{t_build3c:.2f} s; every count and sum exact; launches {launches}; "
+          f"group kernel form {plan3c.mode} ({plan3c.blocks // plan3c.cluster} "
+          f"clusters of {plan3c.cluster}, {plan3c.slice} groups a CTA, "
+          f"{plan3c.round_chunks} chunks a round)")
 
     sch6, data6, seg6, t_build6 = _cfg6_segment(PACKS_SMALL)
     sc6 = SegmentScanner(DeviceSegment(seg6, dev))
@@ -3204,6 +3309,8 @@ def _run(torch, root: Path) -> int:
         "fused_range_sum_masked": scan_launches["fused_range_sum_masked"],
         "fused_tree_agg": scan_launches["fused_tree_agg"],
         "fused_group_partials": group_launches["fused_group_partials"],
+        "fused_group_partials (cluster)":
+            group_launches["fused_group_partials[cluster]"],
         "fused_group_moments_partials":
             series_launches["fused_group_moments_partials"],
         "tile_bitonic_sort": sort_launches["tile_bitonic_sort"],
@@ -3271,28 +3378,8 @@ def _run(torch, root: Path) -> int:
             nops = 10 * sum(p.numel() for p in planes)
             rec["library_ms"] = None
         else:
-            # gid and every value word once, the mask words, the output
-            gid, words, *vals = var[0][:-1]
-            G = var[0][-1]
-            nbytes = (gid.numel() + words.numel()
-                      + sum(v.numel() for v in vals)) * 4 \
-                + (1 + len(vals)) * G * 8
-            nops = gid.numel() * (2 + len(vals))
-            # the library route: ONE index_add_ of the count and every
-            # value half into int64[1 + 2K, G], its operands made outside
-            # the timed window
-            from knoxdb_tpu_torch.ops import bitset as BS
-            from knoxdb_tpu_torch.ops import words as WD
-            ok = BS.unpack_mask(words) & (gid >= 0) & (gid < G)
-            src = torch.stack([ok.to(torch.int64)]
-                              + [WD.u32_to_i64(v) * ok for v in vals]) \
-                .reshape(1 + len(vals), -1)
-            at = torch.where(ok, gid, 0).reshape(-1).long()
-            rec["library_ms"] = _event_ms(
-                lambda i: torch.zeros((src.shape[0], G), dtype=torch.int64,
-                                      device=dev).index_add_(1, at, src),
-                iters=20)
-            del ok, src, at
+            nbytes, nops = _group_need(var[0])
+            rec["library_ms"] = _group_library_ms(var[0])
         rec["bound_ms"], rec["bound_by"] = _bound(nbytes, nops)
         rec["bound_stream_ms"] = nbytes / stream * 1e3
         rows = rows_of[rec["query"]]
@@ -3421,11 +3508,39 @@ def _run(torch, root: Path) -> int:
         "config6": ("fused_group_moments_partials",
                     variants["fused_group_moments_partials"]),
     }
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    k14 = time_kernels_1_4(cases, flush, sms)
+    # K = 2 on config #3c's gids: the low value words and their squares,
+    # as phase 3 builds them
+    g3c, w3c, lo3c, _hi, G3c = cases["config3c"][1][0]
+    cases["config3c K=2"] = ("fused_group_moments_partials", [(
+        g3c, w3c, lo3c, torch.zeros_like(lo3c), *GB.square_halves(lo3c),
+        G3c)])
     kernels_ptxas = _ptxas_of(cuda_build.build_info["log"],
                               ("fused_tree_kernel", "group_sums"))
+    group_so = next(so for so in cuda_build.build_info["library"].split(", ")
+                    if "group_kernels" in so)
+    k14 = time_kernels_1_4(cases, flush, {
+        "ptxas": kernels_ptxas,
+        "sass": _sass_atomics(group_so, ("group_sums",))})
     print(f"phase 5 ptxas of kernels #1-#4: {kernels_ptxas}")
+    # the CLUSTER form at config #3c: a record of its own
+    c3c = cases["config3c"][1][0]
+    err3c = _max_err(GK.fused_group_partials(*c3c),
+                     GK.fused_group_partials_torch(*c3c))
+    if err3c:
+        raise AssertionError(f"config3c group kernel: max abs err {err3c}")
+    records.append({
+        "name": "fused_group_partials (cluster)", "route": "cuda",
+        "source": _SOURCES["fused_group_partials"],
+        "replaces": _REPLACES["fused_group_partials"],
+        "launches": launches_by_kernel["fused_group_partials (cluster)"],
+        "max_abs_err": err3c, "ms": k14["config3c"]["warm_ms"],
+        "plain_ms": _event_ms(lambda i: GK.fused_group_partials_torch(*c3c),
+                              iters=20),
+        "bound_ms": k14["config3c"]["bound_ms"],
+        "bound_by": k14["config3c"]["bound_by"],
+        "library_ms": k14["config3c"]["library_ms"],
+        "query": "config3c", "plan": k14["config3c"]["plan"],
+        "ptxas": k14["config3c"]["ptxas_body"]})
     for r in records:
         case = {"fused_group_partials": "config3",
                 "fused_group_moments_partials": "config6"}.get(r["name"])
@@ -3451,12 +3566,13 @@ def _run(torch, root: Path) -> int:
         "max_abs_err": sort_err, "ms": rec8["kernel_ms"],
         "plain_ms": rec8["plain_ms"], "torch_sort_ms": rec8["torch_sort_ms"],
         "library_ms": rec8["torch_sort_ms"],
-        # 8 B in and 8 B out per element; 45 stages, each reading and
-        # writing 8 B per element in shared memory; ~8 word operations per
-        # element per stage
+        # 8 B in and 8 B out per element; 45 stages of n / 2
+        # compare-exchanges, each a compare and four selects (the earlier
+        # record's shared-memory traffic of the first body's algorithm,
+        # 45 stages reading and writing 8 B an element, beside it)
         **dict(zip(("bound_ms", "bound_by"), _bound(
-            16 * rec8["n"], 45 * 8 * rec8["n"],
-            smem_bytes=45 * 2 * 8 * rec8["n"]))),
+            16 * rec8["n"], 45 * 5 * rec8["n"] // 2))),
+        "bound_smem_ms": _bound(0, 0, smem_bytes=45 * 2 * 8 * rec8["n"])[0],
         "bound_stream_ms": 16 * rec8["n"] / stream * 1e3,
         "query": f"config5 merged operands, N = {rec8['n']}",
         "at_2M": probe[0]})

@@ -40,7 +40,8 @@ _SIGNATURES = {
                               _P],
     "knox_masked_plane_popcounts": [_P, _I, _L, _L, _P, _P, _P, _I, _I, _P],
     "knox_group_sums": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _I, _I,
-                        _P],
+                        _I, _I, _I, _P],
+    "knox_group_max_clusters": [_I, _I, _I, _I],
     "knox_group_chunk_partials": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                   _I, _P],
     "knox_tile_bitonic_sort": [_P, _P, _P, _P, _I, _I, _P],

@@ -13,8 +13,9 @@ Both launch the hand-written CUDA kernel of csrc/group_kernels.cu on a
 CUDA tensor (or raise), and run the plain version on a CPU tensor.
 `LAUNCHES` counts kernel launches and `PLAIN_CALLS` plain-version runs
 taken by a wrapper. `group_tile_plan` gives the kernel's form, chosen by
-G (32-bit shared counters, or u64 atomics in L2 past what fits), and its
-launch geometry.
+G and K (each block's own 32-bit shared counters, or past what one block
+holds one histogram in the shared memory of a thread block cluster), and
+its launch geometry.
 
 The contract changed from the TPU kernels' and is the callers' own. The
 TPU kernels emit f32[B, H, L*(C+1)] per-tile sums of the values' byte
@@ -48,28 +49,37 @@ __all__ = ["fused_group_partials", "fused_group_moments_partials",
            "fused_group_partials_torch",
            "fused_group_moments_partials_torch", "LAUNCHES", "PLAIN_CALLS",
            "reset_counts", "MAX_ROWS", "GroupPlan", "group_tile_plan",
-           "max_shared_groups"]
+           "max_shared_groups", "cluster_smem", "cluster_shape",
+           "cluster_plan", "cuda_plan", "launch"]
 
 MAX_ROWS = 1 << 31      # exclusive: the sums stay below 2^63 under it
 
-# csrc/group_kernels.cu. LIMBS: rows per ring stage, threads per block
-# (one producer warp, eight consumer warps), the most chunks between two
-# flushes, the largest limb, the shared memory of a block and of an SM,
-# the ring's share of it, its most stages and blocks per SM. GLOBAL:
-# threads per block, rows per thread and blocks per SM.
+# csrc/group_kernels.cu. LIMBS and CLUSTER: rows per ring stage, threads
+# per block (one producer warp, eight consumer warps), the shared memory of
+# a block and of an SM, the ring's share of it and its most stages. LIMBS:
+# the most chunks between two flushes, the largest limb, blocks per SM.
+# CLUSTER: the cluster sizes, the largest one the kernel takes, the most
+# chunks a round and the fewest it runs at (one chunk a round lost to the
+# GLOBAL loop at every shape measured, PERF.md). GLOBAL: threads per
+# block, rows per thread and blocks per SM.
 CHUNK_ROWS = 1024
 BLOCK_THREADS = 288
-LIMB_CHUNKS = 64
-LIMB_MAX = (1 << 16) - 1
 SMEM_BLOCK = 232448
 SMEM_SM = 233472
 RING_BYTES = 65536
 MAX_STAGES = 4
+LIMB_CHUNKS = 64
+LIMB_MAX = (1 << 16) - 1
 BLOCKS_PER_SM = 2
+CLUSTER = 8                 # portable
+CLUSTER_WIDE = 16           # non-portable: smaller slices, longer rounds
+MAX_CLUSTER = 16
+ROUND_CHUNKS = 4
+MIN_ROUND_CHUNKS = 2
 GLOBAL_THREADS = 256
 GLOBAL_UNROLL = 4
 GLOBAL_BLOCKS_PER_SM = 4
-MODES = {"global": 0, "limbs": 1}
+MODES = {"global": 0, "limbs": 1, "cluster": 2}
 
 LAUNCHES = {"fused_group_partials": 0, "fused_group_moments_partials": 0}
 PLAIN_CALLS = {"fused_group_partials": 0, "fused_group_moments_partials": 0}
@@ -85,17 +95,24 @@ def reset_counts() -> None:
 
 @dataclass(frozen=True)
 class GroupPlan:
-    """Launch geometry of knox_group_sums. mode: "limbs" (32-bit
-    shared-memory counters fed by a TMA ring of `stages` chunks) or
-    "global" (u64 atomics in L2, when the histogram does not fit);
-    tile_rows: the most rows a block adds into its counters between two
-    flushes (0 for "global")."""
+    """Launch geometry of knox_group_sums. mode: "limbs" (each block's own
+    32-bit shared counters), "global" (u64 atomics in L2) or "cluster"
+    (one histogram per thread block
+    cluster of `cluster` CTAs, `slice` groups in each CTA's shared memory,
+    in rounds of `round_chunks` chunks a CTA), both fed by a TMA ring of
+    `stages` chunks. blocks: CTAs of the grid (for
+    "cluster" a multiple of `cluster`); smem: dynamic shared memory of a
+    CTA; hist_bytes: its counters; tile_rows: the most rows a LIMBS block
+    adds between two flushes (0 for the others)."""
     mode: str
     stages: int
     blocks: int
     smem: int
     hist_bytes: int
     tile_rows: int
+    cluster: int = 0
+    slice: int = 0
+    round_chunks: int = 0
 
 
 def stage_bytes(K: int) -> int:
@@ -104,28 +121,81 @@ def stage_bytes(K: int) -> int:
 
 
 def _ring(K: int) -> tuple[int, int]:
-    """(stages, bytes) of the LIMBS ring, its mbarriers included."""
+    """(stages, bytes) of the ring, its mbarriers included."""
     sb = stage_bytes(K)
     stages = max(2, min(MAX_STAGES, RING_BYTES // sb))
     return stages, stages * (sb + 16)
 
 
 def max_shared_groups(K: int) -> int:
-    """The largest G whose 32-bit counters fit beside the ring in a block's
-    shared memory: the switch from "limbs" to "global"."""
+    """The most groups whose 4(1 + 4K) bytes of 32-bit counters fit beside
+    the ring in one block's shared memory: the switch from "limbs" to
+    "cluster"."""
     return (SMEM_BLOCK - _ring(K)[1]) // (4 * (1 + 4 * K))
 
 
-def group_tile_plan(n: int, G: int, K: int, sms: int = 132) -> GroupPlan:
+def cluster_smem(K: int, slice_: int, round_chunks: int) -> int:
+    """A CLUSTER CTA's shared memory: a ring of round_chunks + 1 stages,
+    the slice's counters, two outboxes of a round's rows (each passing
+    row's slice offset and 2K value words; each rank's bucket padded to 4
+    entries) and the buckets' places and per-warp counts
+    (csrc/group_kernels.cu cluster_smem)."""
+    return (round_chunks + 1) * (stage_bytes(K) + 16) \
+        + 4 * (1 + 4 * K) * slice_ \
+        + 4 * 2 * (1 + 2 * K) * (round_chunks * CHUNK_ROWS + 3 * MAX_CLUSTER) \
+        + 4 * 6 * MAX_CLUSTER
+
+
+def cluster_shape(G: int, K: int, cluster: int | None = None):
+    """(cluster size, slice, round_chunks) of the "cluster" form at G
+    groups: the most chunks a round (1 to ROUND_CHUNKS) whose shared
+    memory fits, then the smaller cluster (CLUSTER before CLUSTER_WIDE);
+    `cluster` fixes the size. The slices, multiples of 4 groups, cover
+    [0, G); None where no shape fits."""
+    best = None
+    for S in (cluster,) if cluster else (CLUSTER, CLUSTER_WIDE):
+        sl = -(-G // S // 4) * 4                     # 16-byte outboxes
+        rc = next((c for c in range(ROUND_CHUNKS, 0, -1)
+                   if cluster_smem(K, sl, c) <= SMEM_BLOCK), None)
+        if rc and (best is None or rc > best[2]):
+            best = (S, sl, rc)
+    return best
+
+
+def cluster_plan(n: int, G: int, K: int, cluster: int, sms: int = 132,
+                 clusters: int | None = None) -> GroupPlan:
+    """The "cluster" form in clusters of `cluster` CTAs (cluster_shape) on
+    `clusters` clusters (the card's cudaOccupancyMaxActiveClusters;
+    sms // cluster when not given), no more than give every CTA a chunk;
+    ValueError where no round fits."""
+    shape = cluster_shape(G, K, cluster)
+    if shape is None:
+        raise ValueError(f"group kernel: no cluster of {cluster} holds "
+                         f"G = {G}, K = {K}")
+    S, slice_, rc = shape
+    nchunks = -(-n // CHUNK_ROWS)
+    nclusters = max(1, min(clusters or sms // S, -(-nchunks // S)))
+    return GroupPlan("cluster", rc + 1, nclusters * S,
+                     cluster_smem(K, slice_, rc), 4 * (1 + 4 * K) * slice_,
+                     0, S, slice_, rc)
+
+
+def group_tile_plan(n: int, G: int, K: int, sms: int = 132,
+                    clusters: int | None = None) -> GroupPlan:
     """The group kernel's form and geometry for n rows (a multiple of 32),
     G groups and K value pairs on a card with `sms` SMs. "limbs" takes
     4(1 + 4K) bytes of counters per group beside the ring, and up to
     BLOCKS_PER_SM blocks per SM where they fit; G past max_shared_groups(K)
-    runs "global" at up to GLOBAL_BLOCKS_PER_SM blocks per SM."""
+    runs "cluster" (cluster_plan, on `clusters` clusters) where its rounds
+    hold MIN_ROUND_CHUNKS chunks or more (K = 1 to G = 115,520, K = 2 to
+    38,336), else "global" at up to GLOBAL_BLOCKS_PER_SM blocks per SM."""
     if G > max_shared_groups(K):
-        blocks = min(-(-n // (GLOBAL_THREADS * GLOBAL_UNROLL)),
-                     sms * GLOBAL_BLOCKS_PER_SM)
-        return GroupPlan("global", 0, max(1, blocks), 0, 0, 0)
+        shape = cluster_shape(G, K)
+        if shape is None or shape[2] < MIN_ROUND_CHUNKS:
+            blocks = min(-(-n // (GLOBAL_THREADS * GLOBAL_UNROLL)),
+                         sms * GLOBAL_BLOCKS_PER_SM)
+            return GroupPlan("global", 0, max(1, blocks), 0, 0, 0)
+        return cluster_plan(n, G, K, shape[0], sms, clusters)
     stages, ring = _ring(K)
     hist = 4 * (1 + 4 * K) * G
     smem = ring + hist
@@ -133,6 +203,25 @@ def group_tile_plan(n: int, G: int, K: int, sms: int = 132) -> GroupPlan:
     blocks = min(-(-n // CHUNK_ROWS), sms * per_sm)
     return GroupPlan("limbs", stages, max(1, blocks), smem, hist,
                      min(LIMB_CHUNKS * CHUNK_ROWS, n))
+
+
+_MAX_CLUSTERS: dict = {}
+
+
+def max_clusters(lib, dev, K: int, cluster: int, slice_: int,
+                 round_chunks: int) -> int:
+    """The card's cudaOccupancyMaxActiveClusters for the "cluster" form at
+    this shape, asked once per device and shape."""
+    key = (dev.index, K, cluster, slice_, round_chunks)
+    if key not in _MAX_CLUSTERS:
+        with torch.cuda.device(dev):
+            got = lib.knox_group_max_clusters(K, cluster, slice_,
+                                              round_chunks)
+        if got <= 0:
+            raise RuntimeError(f"group kernel: no cluster of {cluster} "
+                               f"CTAs fits (cudaError_t {-got})")
+        _MAX_CLUSTERS[key] = got
+    return _MAX_CLUSTERS[key]
 
 
 # ---------------------------------------------------------- plain versions --
@@ -195,22 +284,44 @@ def _group_sums(name: str, gid, mask_words, vals, G: int):
         raise ValueError(f"{name}: unsupported device {dev}")
     from .cuda_build import load
     lib = load()
+    plan = cuda_plan(lib, dev, P * N, G, len(vals) // 2)
+    out = launch(lib, gid, mask_words, vals, G, plan)
+    LAUNCHES[name] += 1
+    return tuple(out.unbind(0))
+
+
+def cuda_plan(lib, dev, n: int, G: int, K: int,
+              cluster: int | None = None) -> GroupPlan:
+    """group_tile_plan on the card of `dev`: its SMs and, for "cluster",
+    its cudaOccupancyMaxActiveClusters. `cluster` forces the "cluster"
+    form in clusters of that size (cluster_plan), for measurements."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = cluster_plan(n, G, K, cluster, sms) if cluster \
+        else group_tile_plan(n, G, K, sms)
+    if plan.mode != "cluster":
+        return plan
+    most = max_clusters(lib, dev, K, plan.cluster, plan.slice,
+                        plan.round_chunks)
+    return cluster_plan(n, G, K, plan.cluster, sms, most)
+
+
+def launch(lib, gid, mask_words, vals, G: int, plan: GroupPlan):
+    """One knox_group_sums launch in `plan`'s geometry on checked CUDA
+    operands: the output int64[1 + 2K, G]; raises on a launch error."""
+    dev = gid.device
     K = len(vals) // 2
-    plan = group_tile_plan(P * N, G, K, torch.cuda.get_device_properties(
-        dev).multi_processor_count)
     out = torch.zeros((1 + len(vals), G), dtype=torch.int64, device=dev)
     ptrs = [v.data_ptr() for v in vals] + [None] * (4 - len(vals))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.knox_group_sums(gid.data_ptr(), mask_words.data_ptr(),
-                                  *ptrs, K, P * N, G, out.data_ptr(),
-                                  MODES[plan.mode], plan.stages,
-                                  plan.blocks, stream)
+        err = lib.knox_group_sums(
+            gid.data_ptr(), mask_words.data_ptr(), *ptrs, K, gid.numel(), G,
+            out.data_ptr(), MODES[plan.mode], plan.stages, plan.blocks,
+            plan.cluster, plan.slice, plan.round_chunks, stream)
     if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with cudaError_t "
-                           f"{err}")
-    LAUNCHES[name] += 1
-    return tuple(out.unbind(0))
+        raise RuntimeError(f"group kernel: CUDA launch failed with "
+                           f"cudaError_t {err}")
+    return out
 
 
 def fused_group_partials(gid, mask_words, vlo, vhi, G: int):

@@ -16,7 +16,10 @@ is a sorted column only because the network sorts.
 `tile_bitonic_sort` launches the CUDA kernel of csrc/sort_kernels.cu on
 CUDA tensors (or raises) and runs the plain PyTorch version
 `tile_bitonic_sort_torch` on CPU tensors. `LAUNCHES` counts kernel
-launches and `PLAIN_CALLS` plain-version runs taken by the wrapper.
+launches and `PLAIN_CALLS` plain-version runs taken by the wrapper. The
+kernel sorts a column in one warp's registers, lane l holding rows
+16l .. 16l + 15 (tests/test_torch_sort_kernels.py models its schedule
+and its store order in numpy).
 """
 
 from __future__ import annotations
@@ -128,6 +131,9 @@ def tile_bitonic_sort(keys: torch.Tensor, pay: torch.Tensor,
     ko, po = torch.empty_like(keys), torch.empty_like(pay)
     if keys.shape[0] == 0:
         return ko, po
+    # the kernel moves 16-byte vectors: a view at another offset is copied
+    keys, pay = (t if t.data_ptr() % 16 == 0 else t.clone()
+                 for t in (keys, pay))
     from .cuda_build import load
     lib = load()
     with torch.cuda.device(dev):

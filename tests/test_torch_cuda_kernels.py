@@ -388,13 +388,15 @@ def _group_fns(K):
 @pytest.mark.parametrize("G", [1, 200, 65536])
 @pytest.mark.parametrize("K", [1, 2])
 def test_group_kernel_forms(cuda, G, K):
-    """LIMBS (G = 1 and 200) and GLOBAL (G = 65,536) against the plain
-    version, with a ragged last chunk (n % 1024 = 512)."""
+    """LIMBS (G = 1 and 200), CLUSTER (K = 1) and GLOBAL (K = 2) at G =
+    65,536 against the plain version, with a ragged last chunk (n % 1024
+    = 512)."""
     rng = np.random.default_rng(G * 7 + K)
     args = _group_case(rng, 3, 2560, G, K, cuda)
     kern, plain = _group_fns(K)
     plan = GK.group_tile_plan(args[0].numel(), G, K)
-    assert plan.mode == ("global" if G == 65536 else "limbs")
+    assert plan.mode == ("limbs" if G < 65536 else
+                         "cluster" if K == 1 else "global")
     got = kern(*args, G)
     torch.cuda.synchronize()
     for g, w in zip(got, plain(*args, G)):
@@ -403,10 +405,10 @@ def test_group_kernel_forms(cuda, G, K):
 
 @pytest.mark.parametrize("K", [1, 2])
 def test_group_kernel_at_shared_threshold(cuda, K):
-    """G at the largest shared histogram and one past it (global)."""
+    """G at the largest shared histogram and one past it (cluster)."""
     gmax = GK.max_shared_groups(K)
     kern, plain = _group_fns(K)
-    for G, mode in ((gmax, "limbs"), (gmax + 1, "global")):
+    for G, mode in ((gmax, "limbs"), (gmax + 1, "cluster")):
         args = _group_case(np.random.default_rng(G), 2, 32768, G, K, cuda)
         plan = GK.group_tile_plan(args[0].numel(), G, K)
         assert plan.mode == mode
@@ -439,6 +441,79 @@ def test_group_kernel_overflow_bound(cuda, K):
         _same(g, w, "all-ones tiles")
 
 
+def _cluster_check(cuda, args, G, K, what, cluster):
+    """The CLUSTER form in clusters of `cluster` CTAs (through cuda_plan /
+    launch) against the plain version, bit for bit."""
+    from knoxdb_tpu_torch.ops import cuda_build
+    lib = cuda_build.load()
+    plan = GK.cuda_plan(lib, cuda, args[0].numel(), G, K, cluster)
+    assert plan.mode == "cluster", what
+    got = GK.launch(lib, args[0], args[1], args[2:], G, plan)
+    torch.cuda.synchronize()
+    want = _group_fns(K)[1](*args, G)
+    for g, w in zip(got.unbind(0), want):
+        _same(g, w, f"{what} {plan}")
+    return plan
+
+
+@pytest.mark.parametrize("G", ["max+1", 20000, 38336, 38337, 65536])
+@pytest.mark.parametrize("K", [1, 2])
+def test_group_cluster_form_equals_plain(cuda, G, K):
+    """Past the shared histogram at 262,144 rows (gids in [-2, G + 3), 70%
+    masks, all-ones words) through the wrapper (CLUSTER, or GLOBAL for
+    K = 2 from 38,337), and the CLUSTER form in every cluster size that
+    holds G (8 and 16 CTAs)."""
+    G = GK.max_shared_groups(K) + 1 if G == "max+1" else G
+    rng = np.random.default_rng(G * 11 + K)
+    args = _group_case(rng, 4, 65536, G, K, cuda)
+    kern, plain = _group_fns(K)
+    before = GK.LAUNCHES[kern.__name__]
+    got = kern(*args, G)
+    torch.cuda.synchronize()
+    assert GK.LAUNCHES[kern.__name__] == before + 1
+    for g, w in zip(got, plain(*args, G)):
+        _same(g, w, f"G={G}")
+    for S in (8, 16):
+        if GK.cluster_shape(G, K, S):
+            _cluster_check(cuda, args, G, K, f"G={G} S={S}", cluster=S)
+
+
+@pytest.mark.parametrize("K", [1, 2])
+@pytest.mark.parametrize("delta", [-1, 0, 1])
+def test_group_cluster_slice_edges(cuda, K, delta):
+    """G = S * k + delta, and rows on the first and last group of every
+    slice, all-ones words: the remote slices' edges."""
+    gmax = GK.max_shared_groups(K)
+    for S in (8, 16):
+        G = S * (gmax // S + 3) + delta
+        _S, sl, _rc = GK.cluster_shape(G, K, S)
+        edges = sorted({e for r in range(S)
+                        for e in (r * sl, min(G, (r + 1) * sl) - 1)})
+        n = 65536
+        gid = np.resize(np.array(edges + [-1, G], np.int32), n)
+        args = _group_case(np.random.default_rng(G), 2, n // 2, G, K, cuda)
+        args[0] = torch.from_numpy(gid.reshape(2, -1)).to(cuda)
+        _cluster_check(cuda, args, G, K, f"S={S} G={G}", cluster=S)
+
+
+@pytest.mark.parametrize("K", [1, 2])
+def test_group_cluster_one_group(cuda, K):
+    """Every row in the last group of the last slice with all-ones words:
+    a wrap on every add into one remote counter."""
+    G = 65536
+    n = 1 << 20
+    gid = torch.full((4, n // 4), G - 1, dtype=torch.int32, device=cuda)
+    ones = torch.full((4, n // 4), -1, dtype=torch.int32, device=cuda)
+    mask = torch.full((4, n // 128), -1, dtype=torch.int32, device=cuda)
+    args = [gid, mask] + [ones] * (2 * K)
+    _cluster_check(cuda, args, G, K, "one group",
+                   cluster=GK.cluster_shape(G, K)[0])
+    kern, _plain = _group_fns(K)
+    got = kern(*args, G)
+    assert int(got[0][G - 1]) == n
+    assert int(got[1][G - 1]) == n * 0xFFFFFFFF
+
+
 def test_group_wrapper_rejects_bad_operands(cuda):
     rng = np.random.default_rng(3)
     gid, mask, vlo, vhi = _group_case(rng, 2, 1024, 10, 1, cuda)
@@ -448,12 +523,13 @@ def test_group_wrapper_rejects_bad_operands(cuda):
         GK.fused_group_partials(gid, mask, vlo.to(torch.int64), vhi, 10)
 
 
-@pytest.mark.parametrize("ntpose", [0, 8])
-@pytest.mark.parametrize("B,krange", [(4, 8), (32, 1 << 32)])
+@pytest.mark.parametrize("ntpose", [0, 1, 3, 8])
+@pytest.mark.parametrize("B,krange", [(1, 8), (4, 8), (32, 1 << 32)])
 def test_tile_sort_kernel_equals_plain(cuda, B, krange, ntpose):
-    """Kernel #8 against its plain version, bit for bit: 4 tiles of keys in
-    [0, 8) (ties everywhere: the payloads' places are the network's) and
-    32 tiles of full-range u32 keys, payload = arange."""
+    """Kernel #8 against its plain version, bit for bit: 1 and 4 tiles of
+    keys in [0, 8) (ties everywhere: the payloads' places are the
+    network's) and 32 tiles of full-range u32 keys, payload = arange; at
+    ntpose 0, 1, 8 and 3 (whose image has no 4-word runs)."""
     from knoxdb_tpu_torch.ops import sort_kernels as S8
     rng = np.random.default_rng(3)
     n = B * S8.TILE
@@ -465,6 +541,20 @@ def test_tile_sort_kernel_equals_plain(cuda, B, krange, ntpose):
     torch.cuda.synchronize()
     assert S8.LAUNCHES["tile_bitonic_sort"] == before + 1
     rk, rp = S8.tile_bitonic_sort_torch(k, p, ntpose)
+    _same(ko, rk, "keys")
+    _same(po, rp, "pay")
+
+
+def test_tile_sort_kernel_misaligned_view(cuda):
+    """A view that starts 4 bytes into its storage (the wrapper copies it
+    to a 16-byte boundary)."""
+    from knoxdb_tpu_torch.ops import sort_kernels as S8
+    rng = np.random.default_rng(8)
+    buf = WD.to_words(rng.integers(0, 1 << 32, S8.TILE + 1,
+                                   dtype=np.uint64).astype(np.uint32), cuda)
+    k, p = buf[1:], torch.arange(S8.TILE, dtype=torch.int32, device=cuda)
+    ko, po = S8.tile_bitonic_sort(k, p, 1)
+    rk, rp = S8.tile_bitonic_sort_torch(k, p, 1)
     _same(ko, rk, "keys")
     _same(po, rp, "pay")
 

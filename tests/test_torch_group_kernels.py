@@ -181,30 +181,53 @@ def _groups(G, K):
     return {"max": gmax, "max+1": gmax + 1}.get(G, G)
 
 
+def _mode(G, K):
+    """The form the plan must pick: LIMBS up to the shared histogram, then
+    CLUSTER where its rounds hold two chunks or more, else GLOBAL."""
+    if G <= GK.max_shared_groups(K):
+        return "limbs"
+    shape = GK.cluster_shape(G, K)
+    return "cluster" if shape and shape[2] >= GK.MIN_ROUND_CHUNKS \
+        else "global"
+
+
 @pytest.mark.parametrize("K", [1, 2])
 @pytest.mark.parametrize("n", [32, 1024 * 63 + 32, 1 << 24, (1 << 31) - 32])
 @pytest.mark.parametrize("G", [1, 1000, "max", "max+1", 65536])
 def test_group_tile_plan_invariants(G, n, K):
     """No 32-bit counter can overflow, shared memory stays within a
-    block's 232,448 bytes, and the shared / global switch falls at
-    max_shared_groups(K)."""
+    block's 232,448 bytes, and the LIMBS / CLUSTER / GLOBAL switches fall
+    where _mode says."""
     G = _groups(G, K)
     plan = GK.group_tile_plan(n, G, K)
-    shared = G <= GK.max_shared_groups(K)
-    assert plan.mode == ("limbs" if shared else "global")
+    assert plan.mode == _mode(G, K)
     assert plan.smem <= GK.SMEM_BLOCK
-    if shared:
+    nchunks = -(-n // GK.CHUNK_ROWS)
+    if plan.mode == "limbs":
         assert plan.smem == plan.stages * (GK.stage_bytes(K) + 16) \
             + plan.hist_bytes
-        assert plan.hist_bytes == 4 * (1 + 4 * K) * G
         assert 2 <= plan.stages <= GK.MAX_STAGES
-        nchunks = -(-n // GK.CHUNK_ROWS)
+        assert plan.hist_bytes == 4 * (1 + 4 * K) * G
         assert 1 <= plan.blocks <= min(nchunks, 132 * GK.BLOCKS_PER_SM)
         # a counter adds at most tile_rows limbs of at most 2^16 - 1, and
         # a block's count at most tile_rows ones
         assert plan.tile_rows <= GK.LIMB_CHUNKS * GK.CHUNK_ROWS
         assert plan.tile_rows * GK.LIMB_MAX < 1 << 32
         assert plan.tile_rows <= n
+        assert (plan.cluster, plan.slice, plan.round_chunks) == (0, 0, 0)
+    elif plan.mode == "cluster":
+        # CARRY counters: a u32 count and per word a u32 sum and a u32 wrap
+        # count, each below n < 2^31 whatever the order of the adds
+        assert plan.smem == GK.cluster_smem(K, plan.slice, plan.round_chunks)
+        assert plan.stages == plan.round_chunks + 1
+        assert plan.hist_bytes == 4 * (1 + 4 * K) * plan.slice
+        assert plan.cluster in (8, 16) and plan.blocks % plan.cluster == 0
+        assert plan.cluster <= plan.blocks <= 132
+        assert plan.blocks // plan.cluster <= max(1, -(-nchunks
+                                                     // plan.cluster))
+        assert plan.cluster * plan.slice >= G
+        assert plan.tile_rows == 0 and plan.slice % 4 == 0
+        assert GK.MIN_ROUND_CHUNKS <= plan.round_chunks <= GK.ROUND_CHUNKS
     else:
         assert (plan.stages, plan.smem, plan.hist_bytes, plan.tile_rows) \
             == (0, 0, 0, 0)
@@ -216,20 +239,150 @@ def test_group_tile_plan_invariants(G, n, K):
 def test_group_tile_plan_geometry():
     """The main paths' geometry: config #3 (16,777,216 rows, G = 1000) and
     #6 (4,194,304 rows, G = 1024, K = 2) run LIMBS at two blocks per SM;
-    #3c (G = 65,536) runs GLOBAL at four 256-thread blocks per SM, 528 on
-    132 SMs; a small input takes one block per chunk; the block counts
-    follow the card's SMs."""
+    #3c (G = 65,536) runs CLUSTER on 8 clusters of 16 CTAs, 4,096 groups
+    a CTA, 3 chunks a round; K = 2 at 20,000 on 8 clusters of 16, 2
+    chunks a round, and at 65,536 (one chunk a round) GLOBAL at four
+    256-thread blocks per SM; a small input takes one block per chunk;
+    the block counts follow the card's SMs and the clusters it reports."""
     c3 = GK.group_tile_plan(1 << 24, 1000, 1)
     assert (c3.mode, c3.blocks, c3.tile_rows) == ("limbs", 264, 1 << 16)
     c6 = GK.group_tile_plan(1 << 22, 1024, 2)
     assert (c6.mode, c6.blocks) == ("limbs", 264)
     c3c = GK.group_tile_plan(1 << 22, 1 << 16, 1)
-    assert (c3c.mode, c3c.blocks) == ("global", 528)
+    assert (c3c.mode, c3c.blocks, c3c.cluster, c3c.slice,
+            c3c.round_chunks) == ("cluster", 128, 16, 4096, 3)
+    k2 = GK.group_tile_plan(1 << 22, 20000, 2)
+    assert (k2.mode, k2.blocks, k2.cluster, k2.slice, k2.round_chunks) \
+        == ("cluster", 128, 16, 1252, 2)
+    assert (GK.group_tile_plan(1 << 22, 1 << 16, 2).mode,
+            GK.group_tile_plan(1 << 22, 1 << 16, 2).blocks) == ("global", 528)
+    forced = GK.cluster_plan(1 << 22, 1 << 16, 2, 16)
+    assert (forced.mode, forced.blocks, forced.cluster, forced.round_chunks) \
+        == ("cluster", 128, 16, 1)
+    with pytest.raises(ValueError, match="no cluster of 8"):
+        GK.cluster_plan(1 << 22, 1 << 16, 2, 8)
     small = GK.group_tile_plan(3 * 1024 + 32, 10, 1)
     assert (small.blocks, small.tile_rows) == (4, 3 * 1024 + 32)
+    assert GK.group_tile_plan(3 * 1024, 20000, 1).blocks == 8
     assert GK.group_tile_plan(1 << 24, 1000, 1, sms=114).blocks == 228
     assert GK.group_tile_plan(1 << 22, 1 << 16, 2, sms=114).blocks == 456
-    assert GK.MODES == {"global": 0, "limbs": 1}
+    assert GK.group_tile_plan(1 << 22, 1 << 16, 1, sms=114).blocks == 112
+    assert GK.group_tile_plan(1 << 22, 1 << 16, 1, clusters=7).blocks == 112
+    assert GK.MODES == {"global": 0, "limbs": 1, "cluster": 2}
+
+
+@pytest.mark.parametrize("K", [1, 2])
+def test_cluster_plan_every_g(K):
+    """Every G from max_shared_groups(K) + 1 to 65,536: the cluster shape
+    takes 8 or 16 CTAs, a CTA's shared memory (the ring, the slice, two
+    outboxes) within 227 KB, the slices of [0, G) covering it
+    exactly with a nonempty last slice, and the kernel's multiply-shift
+    (gl * ceil(2^32 / slice) >> 32) exact over the span; the plan runs
+    CLUSTER while rounds hold two chunks or more (K = 1 everywhere, K = 2
+    to 38,336) and GLOBAL past that."""
+    gmax = GK.max_shared_groups(K)
+    switch = {1: None, 2: 38337}[K]
+    for G in range(gmax + 1, 65537):
+        S, sl, rc = GK.cluster_shape(G, K)
+        assert S in (8, 16) and sl % 4 == 0, G
+        assert (S - 1) * sl < G <= S * sl, G
+        assert GK.cluster_smem(K, sl, rc) <= GK.SMEM_BLOCK, G
+        if rc < GK.ROUND_CHUNKS:
+            assert GK.cluster_smem(K, sl, rc + 1) > GK.SMEM_BLOCK, G
+        assert S * sl * sl < 1 << 32, G
+        mode = GK.group_tile_plan(1 << 22, G, K).mode
+        assert mode == ("global" if switch and G >= switch else "cluster"), G
+    for G in (gmax + 1, 9137, 20000, 38336, 38337, 65535, 65536):
+        S, sl, _rc = GK.cluster_shape(G, K)
+        gl = np.arange(S * sl, dtype=np.uint64)
+        magic = np.uint64(-(-(1 << 32) // sl))
+        np.testing.assert_array_equal((gl * magic) >> np.uint64(32),
+                                      gl // np.uint64(sl))
+
+
+def _cluster_model(gids, words, vals, G, plan):
+    """A numpy model of the CLUSTER form: chunk c to CTA c % blocks of
+    cluster (c % blocks) // S, its rows into the S slices of that
+    cluster's histogram, u32 counters with a wrap count per word read
+    from each add's old value, then the flush of every slice as u64
+    entries added into the output."""
+    n = gids.size
+    gid = gids.reshape(-1).astype(np.int64)
+    ok = np.unpackbits(words.reshape(-1).view(np.uint8),
+                       bitorder="little")[:n].astype(bool)
+    ok &= (gid >= 0) & (gid < G)
+    chunk = np.arange(n) // GK.CHUNK_ROWS
+    cl = (chunk % plan.blocks) // plan.cluster
+    out = np.zeros((1 + len(vals), G), np.uint64)
+    width = plan.cluster * plan.slice
+    for c in range(plan.blocks // plan.cluster):
+        sel = ok & (cl == c)
+        gl = gid[sel]
+        rank, off = gl // plan.slice, gl % plan.slice
+        assert (rank < plan.cluster).all()
+        cnt = np.zeros((plan.cluster, plan.slice), np.uint32)
+        np.add.at(cnt, (rank, off), np.uint32(1))
+        ent = [cnt.astype(np.uint64)]
+        for v in vals:
+            v = v.reshape(-1)[sel].astype(np.uint64)
+            # the adds in row order: each old value is the running sum mod
+            # 2^32 of the earlier rows of its group
+            order = np.argsort(gl, kind="stable")
+            g_s, v_s = gl[order], v[order]
+            cum = np.cumsum(v_s)
+            first = np.r_[True, g_s[1:] != g_s[:-1]]
+            start = np.maximum.accumulate(
+                np.where(first, np.arange(g_s.size), 0))
+            before = cum - v_s - (cum[start] - v_s[start])
+            old = before & np.uint64(0xFFFFFFFF)
+            wrap = (old + v_s) >= np.uint64(1 << 32)
+            s32 = np.zeros(width, np.uint64)
+            w32 = np.zeros(width, np.uint64)
+            np.add.at(s32, g_s, v_s)
+            np.add.at(w32, g_s, wrap.astype(np.uint64))
+            s32 &= np.uint64(0xFFFFFFFF)
+            assert (w32 < (1 << 31)).all()
+            ent.append((s32 + (w32 << np.uint64(32)))
+                       .reshape(plan.cluster, plan.slice))
+        for k, e in enumerate(ent):
+            out[k] += e.reshape(-1)[:G]
+    return out
+
+
+@pytest.mark.parametrize("K", [1, 2])
+@pytest.mark.parametrize("G,force", [("max+1", None), (20000, None),
+                                     (65536, None), (65536, 16)])
+def test_cluster_model_equals_plain(G, force, K):
+    """The CLUSTER form's slices and CARRY counters, modelled in numpy on
+    its plan (CTAs of a small grid, so every cluster takes rows), equal
+    _group_sums_torch bit for bit; and one group taking every row with
+    all-ones value words (a wrap on every add) gives n * (2^32 - 1)."""
+    G = _groups(G, K)
+    rng = np.random.default_rng(G * 3 + K)
+    P, N = 2, 16384
+    gids = rng.integers(-2, G + 3, (P, N)).astype(np.int32)
+    mask = rng.random((P, N)) < 0.7
+    words = np.stack([TBS.np_pack_mask(mask[p]) for p in range(P)])
+    vals = list(rng.integers(0, 1 << 32, (2 * K, P, N), dtype=np.uint64)
+                .astype(np.uint32))
+    vals[0][0, :64] = 0xFFFFFFFF
+    plan = GK.cluster_plan(P * N, G, K, force or GK.cluster_shape(G, K)[0],
+                           clusters=2)
+    assert plan.mode == "cluster" and plan.blocks == 2 * plan.cluster
+    want = GK._group_sums_torch(torch.from_numpy(gids),
+                                WD.to_words(words, "cpu"),
+                                [WD.to_words(v, "cpu") for v in vals], G)
+    got = _cluster_model(gids, words, vals, G, plan)
+    for k, w in enumerate(want):
+        np.testing.assert_array_equal(got[k].view(np.int64), w.numpy())
+    one = np.full((P, N), G - 1, np.int32)
+    full = np.full((P, N // 32), 0xFFFFFFFF, np.uint32)
+    ones = [np.full((P, N), 0xFFFFFFFF, np.uint32)] * (2 * K)
+    got = _cluster_model(one, full, ones, G, plan)
+    assert int(got[0, G - 1]) == P * N
+    for k in range(2 * K):
+        assert int(got[1 + k, G - 1]) == P * N * 0xFFFFFFFF
+    assert int(got[:, :G - 1].sum()) == 0
 
 
 def test_group_partials_one_group_vs_pallas():
