@@ -103,6 +103,23 @@ exits nonzero:
        of 4,194,304 rows (join_side, join_pairs_device,
        rows_at_positions), with no filter and with amount > 0: every
        pair's amount and bal;
+     - the parallel layer (knoxdb_tpu_torch.parallel) on make_mesh(1)
+       and on a virtual mesh of 4 shards on cuda:0: config #1's rows
+       built with uniform=4 (the shards' planes equal the host build),
+       config #1 and entry() through ShardedScanner and
+       sharded_range_scan, config #3 group_scan (both routes) and config
+       #6 series moments, exact against numpy and the single-device
+       scanner, kernels #1, #2, #3 and #4 launched once per shard per
+       call; config #5's joins through shuffle_join_rows on the virtual
+       mesh (unique build, shift core, the 40-entry run's general core,
+       LEFT, a hot key that makes heavy buckets), pairs equal to
+       join_pairs_device's as multisets, with the shuffle's stats; and
+       the SDK dry run of __graft_entry__.dryrun_multichip at config #1's
+       row count (aggregate, group_by, run_series with var, order_by
+       limit 50, deletes, an incremental merge and a re-query, knox.join
+       of 4,194,304 x 262,144 rows down the shuffle branch) on a
+       mesh-attached database against a plain one, every answer equal;
+       each call's wall on the mesh beside one device;
      - the SDK (knoxdb_tpu_torch.knox.open_database on the engine's
        stores, device cuda), each answer exact against the same oracles:
        config #1 count() / sum() / aggregate(), entry()'s tree through
@@ -1566,6 +1583,225 @@ def time_joins(d, cap):
     return out
 
 
+MESH_SHARDS = 4                     # the virtual mesh's shards on cuda:0
+MESH_ITERS = 10                     # timed calls per mesh wall
+
+
+def _uniform(sch, data, n_shards):
+    from knoxdb_tpu_torch.pack.segment import build_segment
+    t0 = time.perf_counter()
+    seg = build_segment(sch, data, pack_size=PACK_SIZE, uniform=n_shards)
+    return seg, time.perf_counter() - t0
+
+
+def _placed_equal_host(ms, seg):
+    """Every column's shard planes and pack bases, joined in shard order,
+    equal the host build's per-pack arrays."""
+    from knoxdb_tpu_torch.ops import words as WD
+    for name, col in seg.columns.items():
+        groups = [sh.d.column(name).groups[0] for sh in ms.shards]
+        if "planes" in groups[0].arrays:
+            got = np.concatenate([WD.from_words(g.arrays["planes"])
+                                  for g in groups], axis=1)
+            if not np.array_equal(got, np.stack([p.planes for p in col.packs],
+                                                axis=1)):
+                raise AssertionError(f"mesh placement: {name} planes")
+        if "min_keys" in groups[0].arrays:
+            got = np.concatenate([g.arrays["min_keys"].cpu().numpy()
+                                  for g in groups]).view(np.uint64)
+            if not np.array_equal(got, np.array([p.min_key for p in col.packs],
+                                                np.uint64)):
+                raise AssertionError(f"mesh placement: {name} min_keys")
+
+
+def phase_mesh(dev, card, root, sch, data, sc, queries, sch3, data3, sc3,
+               sch6, data6, sc6, keys5):
+    """The parallel layer on the card, on make_mesh(1) (the one real
+    device) and on a virtual mesh of MESH_SHARDS shards on cuda:0: config
+    #1 (uniform build, ShardedScanner config #1 and entry(),
+    sharded_range_scan), config #3 group_scan and config #6 series
+    moments, each exact against the single-device scanner and numpy with
+    every kernel of the path launched once per shard; config #5's joins
+    through shuffle_join_rows on the virtual mesh against
+    join_pairs_device; the dry run of the SDK on a mesh-attached database
+    against a plain one. Returns the per-shard launches and the walls."""
+    import torch
+    from knoxdb_tpu_torch import knox as TK
+    from knoxdb_tpu_torch.exec import groupby as GB
+    from knoxdb_tpu_torch.exec import join as TJ
+    from knoxdb_tpu_torch.exec.device import DeviceSegment
+    from knoxdb_tpu_torch.ops import words as WD
+    from knoxdb_tpu_torch.parallel import (Mesh, ShardedScanner,
+                                           is_uniform_segment, make_mesh,
+                                           sharded_range_scan,
+                                           shuffle_join_rows)
+    from knoxdb_tpu_torch.testing.dryrun import dryrun_tables
+    from knoxdb_tpu_torch.types import JoinType
+
+    meshes = {"mesh1": make_mesh(1),
+              "mesh4": Mesh([dev] * MESH_SHARDS, ("packs",))}
+    seg1, t1 = _uniform(sch, data, MESH_SHARDS)
+    seg3, t3 = _uniform(sch3, data3, MESH_SHARDS)
+    seg6, t6 = _uniform(sch6, data6, MESH_SHARDS)
+    print(f"phase 4 mesh: uniform={MESH_SHARDS} host builds config1 "
+          f"{t1:.2f} s, config3 {t3:.2f} s, config6 {t6:.2f} s; packs "
+          f"{seg1.npacks} / {seg3.npacks} / {seg6.npacks}")
+    out = {"launches": {}, "walls": {}}
+    trees3 = [_gt_tree(sch3, "bal", THR3 + k) for k in (0, 1)]
+    plans6 = [GB.plan_buckets(sc6.d, "ts", T6 + k, IV6, G6) for k in (0, 1)]
+    kinds6 = {"val": ("moments",)}
+    for mname, mesh in meshes.items():
+        nd = mesh.shape["packs"]
+        ms = ShardedScanner(DeviceSegment(seg1, dev), mesh)
+        if not is_uniform_segment(ms.d, nd):
+            raise AssertionError(f"{mname}: config1 segment not uniform")
+        _placed_equal_host(ms, seg1)
+        launches = {}
+        for qname in ("config1", "entry"):
+            mk, aggs = queries[qname]
+            res, ln = run_path(lambda: ms.scan(mk(1000), aggs))
+            count, want = _oracle(data, qname, 1000)
+            one = sc.scan(mk(1000), aggs)
+            if (res.count, res.aggs) != (count, want) \
+                    or (one.count, one.aggs) != (count, want):
+                raise AssertionError(f"{mname} {qname}: {res.count} "
+                                     f"{res.aggs} != {count} {want}")
+            kname = ("fused_range_sum_masked" if qname == "config1"
+                     else "fused_tree_agg")
+            if ln[kname] != nd:
+                raise AssertionError(f"{mname} {qname}: {kname} launched "
+                                     f"{ln[kname]} times on {nd} shards")
+            launches[qname] = ln[kname]
+            out["walls"][(mname, qname)] = (
+                _wall_ms(lambda i: ms.scan(mk(1000 + i % 2), aggs),
+                         iters=MESH_ITERS),
+                _wall_ms(lambda i: sc.scan(mk(1000 + i % 2), aggs),
+                         iters=MESH_ITERS))
+        # sharded_range_scan on the val column's planes
+        col = seg1.columns["val"]
+        planes = np.stack([p.planes for p in col.packs], axis=1)
+        mins = np.array([p.min_key for p in col.packs], np.uint64)
+        valid = WD.from_words(ms.d.valid_words)
+        got, ln = run_path(lambda: sharded_range_scan(
+            mesh, planes, mins, valid, 1000, 50000, col.packs[0].width))
+        count, want = _oracle(data, "config1", 1000)
+        if got != (count, want[("sum", "val")]) \
+                or ln["fused_range_sum_masked"] != nd:
+            raise AssertionError(f"{mname} sharded_range_scan: {got} "
+                                 f"launches {ln}")
+        launches["sharded_range_scan"] = ln["fused_range_sum_masked"]
+
+        ms3 = ShardedScanner(DeviceSegment(seg3, dev), mesh)
+        for minmax in (False, True):
+            res, ln = run_path(lambda: ms3.group_scan(
+                trees3[0], "acct", ["bal"], minmax=minmax))
+            _cfg3_check(f"{mname} config3 minmax={minmax}", data3, THR3,
+                        res, minmax)
+            if not minmax:
+                if ln["fused_group_partials"] != nd:
+                    raise AssertionError(f"{mname} config3: {ln}")
+                launches["config3"] = ln["fused_group_partials"]
+        one = sc3.group_scan(trees3[0], "acct", ["bal"], minmax=False)
+        if list(one[1]) != list(res[1]):
+            raise AssertionError(f"{mname} config3: counts differ")
+        out["walls"][(mname, "config3 group_scan")] = (
+            _wall_ms(lambda i: ms3.group_scan(trees3[i % 2], "acct",
+                                              ["bal"], minmax=False),
+                     iters=MESH_ITERS),
+            _wall_ms(lambda i: sc3.group_scan(trees3[i % 2], "acct",
+                                              ["bal"], minmax=False),
+                     iters=MESH_ITERS))
+        ms6 = ShardedScanner(DeviceSegment(seg6, dev), mesh)
+        res6, ln = run_path(lambda: ms6.series_scan(None, "ts", kinds6,
+                                                    plans6[0]))
+        _cfg6_check(data6, res6)
+        if ln["fused_group_moments_partials"] != nd:
+            raise AssertionError(f"{mname} config6: {ln}")
+        launches["config6"] = ln["fused_group_moments_partials"]
+        out["walls"][(mname, "config6 series_scan")] = (
+            _wall_ms(lambda i: ms6.series_scan(None, "ts", kinds6,
+                                               plans6[i % 2]),
+                     iters=MESH_ITERS),
+            _wall_ms(lambda i: sc6.series_scan(None, "ts", kinds6,
+                                               plans6[i % 2]),
+                     iters=MESH_ITERS))
+        out["launches"][mname] = launches
+        print(f"phase 4 mesh {mname} ({nd} shard{'s' if nd > 1 else ''}): "
+              f"config1, entry(), sharded_range_scan, config3 (both "
+              f"routes) and config6 exact vs numpy and the single-device "
+              f"scanner; launches per call {launches}")
+        del ms, ms3, ms6
+
+    # config #5's joins on the virtual mesh
+    lk, rk, rku = keys5
+    rkw = rk.copy()
+    rkw[:40] = lk[0]
+    lks = lk.copy()
+    lks[: len(lk) // 3] = rku[0]             # a hot key: heavy buckets
+    mesh4 = meshes["mesh4"]
+    jstats = {}
+    for jname, lkeys, rkeys, kw, core in (
+            ("unique", lk, rku, {"unique_build": True}, "unique"),
+            ("shift", lk, rk, {}, "shift"),
+            ("wide run", lk, rkw, {}, "general"),
+            ("LEFT", lk, rk, {"how": "left"}, "shift"),
+            ("skewed", lks, rku, {"unique_build": True,
+                                  "skew_factor": 1.2}, "unique")):
+        ld, rd = _key_tensor(lkeys, dev), _key_tensor(rkeys, dev)
+        t0 = time.perf_counter()
+        li, ri, st = shuffle_join_rows(mesh4, ld, rd, axis="packs", **kw)
+        t_mesh = time.perf_counter() - t0
+        how = JoinType.LEFT if kw.get("how") == "left" else JoinType.INNER
+        t0 = time.perf_counter()
+        want = TJ.join_pairs_device(ld, rd, how,
+                                    unique_build=kw.get("unique_build",
+                                                        False))
+        t_one = time.perf_counter() - t0
+        n = _check_pairs(f"mesh4 shuffle {jname}", (li, ri),
+                         _pair_codes(*want, len(rkeys)), len(rkeys))
+        if st["core"] != core or (jname == "skewed"
+                                  and st["heavy_buckets"] < 1):
+            raise AssertionError(f"mesh4 shuffle {jname}: {st}")
+        jstats[jname] = {k: st[k] for k in (
+            "core", "heavy_buckets", "cap_exchange", "cap_pairs",
+            "work_eff", "work_eff_measured", "rows_per_dev",
+            "shuffle_bytes")}
+        jstats[jname]["pairs"] = n
+        out["walls"][("mesh4", f"join {jname}")] = (t_mesh * 1e3,
+                                                    t_one * 1e3)
+        print(f"phase 4 mesh4 shuffle_join_rows {jname}: {n} pairs = "
+              f"join_pairs_device's as a multiset; stats {jstats[jname]}")
+    out["joins"] = jstats
+
+    # the SDK dry run: mesh-attached database against a plain one
+    answers, dwalls = {}, {}
+    for tag, kw in (("plain", {}), ("mesh4", {"mesh": mesh4})):
+        ans, w, db = dryrun_tables(
+            TK, f"dry_{tag}", n=PACK_SIZE * N_PACKS, pack_size=PACK_SIZE,
+            join_rows=NL5, device=str(dev), wal_sync="delay",
+            path=str(root / f"dry_{tag}"), **kw)
+        sc0 = db.table("acct")._t.segments[0].scanner_()
+        if (tag == "mesh4") != isinstance(sc0, ShardedScanner):
+            raise AssertionError(f"dry run {tag}: scanner {type(sc0)}")
+        db.close()
+        answers[tag], dwalls[tag] = ans, w
+    if answers["plain"] != answers["mesh4"]:
+        bad = [k for k in answers["plain"]
+               if answers["plain"][k] != answers["mesh4"][k]]
+        raise AssertionError(f"dry run: mesh answers differ in {bad}")
+    for k in dwalls["plain"]:
+        out["walls"][("mesh4", f"sdk {k}")] = (dwalls["mesh4"][k] * 1e3,
+                                               dwalls["plain"][k] * 1e3)
+    print(f"phase 4 mesh dry run (knox, {PACK_SIZE * N_PACKS} rows, "
+          f"join {NL5} x {NL5 // 16}): every answer of the mesh-attached "
+          f"database equals the plain one's ({answers['mesh4']['join'][0]} "
+          f"join pairs, aggregate {answers['mesh4']['aggregate']})")
+    print(f"phase 5 mesh walls ms, mesh beside one device ({card}): "
+          + "; ".join(f"{m} {q}: {a:.3f} / {b:.3f}"
+                      for (m, q), (a, b) in out["walls"].items()))
+    return out
+
+
 def run_path(call):
     """Drive one main path with every launch counter at 0 just before it;
     returns its result and the counters just after."""
@@ -2136,7 +2372,7 @@ def time_topk(sc4, tree4):
               f"({d.P * d.N / out[field]['wall_ms'] / 1e6:.2f} G rows/s); "
               f"profiled: {out[field]['profile']}")
     wo, cb_np, _gmin = sc4._fns[("topk-fastplan", "big")]
-    cb = sc4._fns[("topk-cb", "big")]
+    cb = sc4._fns[("topk-cb", "big", 0)]   # the upload of packs [0, P)
     planes = d.column("big").groups[0].arrays["planes"]
     mask_fn, margs = sc4.prepare(tree4(0), [])
     mask = mask_fn(*margs)[0]
@@ -3294,6 +3530,11 @@ def _run(torch, root: Path) -> int:
         phase_sort_probe(dev, lk, rk)
     _mark("joins, sort probe")
 
+    # ---- phase 4: the parallel layer (meshes of 1 and 4 shards) ----
+    mesh_out = phase_mesh(dev, card, root, sch, data, sc, queries, sch3,
+                          data3, sc3, sch6, data6, sc6, keys5)
+    _mark("mesh")
+
     # ---- phase 4: the engine (Engine, Table, WAL, journal, store) ----
     cfg1 = phase_engine_config1(dev, root)
     cfg1["reopen_s"] = phase_engine_reopen(dev, root, cfg1)
@@ -3360,7 +3601,11 @@ def _run(torch, root: Path) -> int:
         rec = {"name": kname, "route": "cuda", "source": _SOURCES[kname],
                "replaces": _REPLACES[kname],
                "launches": launches_by_kernel[kname], "max_abs_err": err,
-               "ms": ms, "plain_ms": plain_ms, "query": query_of[kname]}
+               "ms": ms, "plain_ms": plain_ms, "query": query_of[kname],
+               # per call of the same query on the meshes of 1 and 4
+               # shards (phase 4 mesh): one launch per shard
+               "launches_mesh": {m: ln[query_of[kname]] for m, ln in
+                                 mesh_out["launches"].items()}}
         if kname in SK.LAUNCHES:
             rec["ms_l2_flushed"] = _event_ms(
                 lambda i: kf(*var[i % 2]), before=lambda i: flush.fill_(i))
@@ -3589,6 +3834,11 @@ def _run(torch, root: Path) -> int:
     stages["sdk"] = phase_sdk(dev, root, cfg1, lk, rku, stages["engine"],
                               t_build, card)
     _mark("sdk")
+    stages["mesh"] = {"launches": mesh_out["launches"],
+                      "joins": mesh_out["joins"],
+                      "walls_ms_mesh_vs_one": {
+                          f"{m} {q}": w for (m, q), w in
+                          mesh_out["walls"].items()}}
     print(json.dumps({"kernels": records, "stream_bytes_per_s": stream,
                       "stages": stages, "card": card, "n_rows": n_rows}))
     print(f"card: {card}")

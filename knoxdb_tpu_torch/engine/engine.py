@@ -49,6 +49,9 @@ class Options:
     # the torch device every segment of the engine uploads to and scans
     # on (runtime-only, not persisted)
     device: str = "cuda"
+    # parallel.Mesh for pack-parallel scans and shuffle joins (runtime-
+    # only, not persisted); None = the engine's one device
+    mesh: object = None
 
 
 class CacheManager:
@@ -359,6 +362,7 @@ class Engine:
                 f"engine {name}: device {self.opts.device!r} asked for, "
                 f"but torch.cuda.is_available() is False; pass "
                 f"Options(device='cpu') to run on the CPU")
+        self.mesh = self.opts.mesh
         root = Path(self.opts.path or Path(tempfile.gettempdir())
                     / "knoxdb_tpu_torch" / name)
         if self.opts.driver == "file":

@@ -138,8 +138,20 @@ class _SegHandle:
         # fresh scanner starts with empty plan and operand caches.
         sc = self.scanner
         if sc is None:
-            ds = DeviceSegment(self.seg, self.table.engine.device)
-            sc = SegmentScanner(ds)
+            dev = self.table.engine.device
+            mesh = self.table.engine.mesh
+            sc = None
+            if mesh is not None:
+                # a uniform segment's columns live in the mesh's shards:
+                # the scanner plans over host metadata alone
+                from ..parallel.engine_spmd import (ShardedScanner,
+                                                    is_uniform_segment)
+                ds = DeviceSegment(self.seg, dev, arrays=False)
+                if is_uniform_segment(ds, mesh.shape[mesh.axis_names[0]]):
+                    sc = ShardedScanner(ds, mesh, axis=mesh.axis_names[0])
+            if sc is None:
+                ds = DeviceSegment(self.seg, dev)
+                sc = SegmentScanner(ds)
             self.dseg = ds
             self.scanner = sc
         self.table.engine.cache.note_use(self)
@@ -836,15 +848,7 @@ class Table:
             d = sc.d
             if total:
                 cap = min(1 << max(0, (total - 1).bit_length()), d.P * d.N)
-                dcol = d.column(field)
-                if len(dcol.groups) == 1 and dcol.groups[0].npacks == d.P:
-                    keys = D.group_decode_keys(dcol.groups[0], d.W)
-                else:
-                    keys = torch.zeros((d.P, d.N), dtype=torch.int64,
-                                       device=d.device)
-                    for g in dcol.groups:
-                        keys.index_copy_(0, g.idx_t,
-                                         D.group_decode_keys(g, d.W))
+                keys = sc._decode_rows(field, D.group_decode_keys)
                 idx, _cnt = CP.packed_mask_to_indexes(mask_words, cap)
                 safe = torch.where(idx == CP.SENTINEL, 0, idx).long()
                 kk = torch.take(keys, safe)[:total]
@@ -1130,8 +1134,11 @@ class Table:
                          for p in parts])
                 data[f.name] = arr[order]
             self.state.epoch += 1
+            mesh = self.engine.mesh
+            ndev = mesh.shape[mesh.axis_names[0]] if mesh is not None \
+                else None
             seg = build_segment(self.full_schema, data, self.pack_size,
-                                epoch=self.state.epoch)
+                                epoch=self.state.epoch, uniform=ndev)
             h = _SegHandle(seg,
                            host_pk=_as_dtype(data[self.schema.pk.name],
                                              np.uint64),

@@ -99,11 +99,14 @@ class DeviceColumn:
 
 class DeviceSegment:
     """Uploaded image of one Segment on `device` (columns upload on first
-    use)."""
+    use). arrays=False keeps the groups' host metadata only, with no
+    column data on the device: the planning image of a segment whose
+    packs live in shards (parallel/engine_spmd.py)."""
 
-    def __init__(self, seg: Segment, device):
+    def __init__(self, seg: Segment, device, arrays: bool = True):
         self.seg = seg
         self.device = torch.device(device)
+        self.with_arrays = arrays
         self.P = seg.npacks
         self.N = seg.pack_size
         self.W = seg.pack_size // 32
@@ -120,7 +123,8 @@ class DeviceSegment:
     def column(self, name: str) -> DeviceColumn:
         col = self.columns.get(name)
         if col is None:
-            col = _upload_column(self.seg.columns[name], self.device)
+            col = _upload_column(self.seg.columns[name], self.device,
+                                 self.with_arrays)
             self.columns[name] = col
         return col
 
@@ -133,7 +137,8 @@ class DeviceSegment:
                 tuple((n, self.column(n).sig()) for n in names))
 
 
-def _upload_column(col: EncodedColumn, device) -> DeviceColumn:
+def _upload_column(col: EncodedColumn, device,
+                   arrays: bool = True) -> DeviceColumn:
     bykey: dict[tuple, list[int]] = {}
     for i, p in enumerate(col.packs):
         bykey.setdefault((p.scheme, p.width, p.k), []).append(i)
@@ -144,17 +149,19 @@ def _upload_column(col: EncodedColumn, device) -> DeviceColumn:
         idx = np.asarray(idxs, np.int64)
         g = DeviceGroup(scheme, width, k, col.nlimbs, col.wide, idx,
                         idx_t=torch.from_numpy(idx).to(device))
-        if scheme in (Scheme.BITPACK, Scheme.DELTA, Scheme.DICT, Scheme.ALP):
+        if arrays and scheme in (Scheme.BITPACK, Scheme.DELTA, Scheme.DICT,
+                                 Scheme.ALP):
             g.arrays["planes"] = WD.to_words(
                 np.stack([p.planes for p in packs], axis=1), device)
         if scheme == Scheme.ALP:
             g.bases = [p.min_key for p in packs]
             g.exps = [p.exp for p in packs]
-        if scheme in (Scheme.CONST, Scheme.RAW, Scheme.RLE, Scheme.DICT):
+        if arrays and scheme in (Scheme.CONST, Scheme.RAW, Scheme.RLE,
+                                 Scheme.DICT):
             kmax = max(p.values.shape[1] for p in packs)
             g.arrays["values"] = WD.to_words(
                 np.stack([_pad_vals(p.values, kmax) for p in packs]), device)
-        if scheme == Scheme.RLE:
+        if arrays and scheme == Scheme.RLE:
             kmax = max(len(p.ends) for p in packs)
             g.arrays["ends"] = WD.to_words(
                 np.stack([_pad_ends(p.ends, kmax) for p in packs]), device)
@@ -163,8 +170,9 @@ def _upload_column(col: EncodedColumn, device) -> DeviceColumn:
                 g.bases = [col.wide_bases[i] for i in idxs]
             else:
                 g.min_keys = np.array([p.min_key for p in packs], np.uint64)
-                g.arrays["min_keys"] = torch.from_numpy(
-                    WD.bits_from_u64(g.min_keys)).to(device)
+                if arrays:
+                    g.arrays["min_keys"] = torch.from_numpy(
+                        WD.bits_from_u64(g.min_keys)).to(device)
         if scheme == Scheme.DICT:
             g.dict_keys = [p.dict_keys for p in packs]
             if packs[0].dict_bytes is not None:

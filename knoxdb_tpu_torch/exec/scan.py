@@ -27,9 +27,10 @@ Per query:
 Plans are cached on their full signature (segment shapes, the filter
 tree, pruning decisions, aggregates, the fusion plan and the per-group
 rewrite statics), so two queries share a plan only if they run the same
-program; query literals stay runtime operands. Group-by and series plans
-(`group_scan`, `series_scan`) run a mask-only scan plan first and key on
-its full signature too.
+program; query literals stay runtime operands. Group-by and series calls
+(`group_scan`, `series_scan`) run a mask-only scan plan first, then their
+partials over that mask (`_group_parts`, `_series_parts`), which a
+sharded scanner runs per shard (parallel/engine_spmd.py).
 """
 
 from __future__ import annotations
@@ -290,25 +291,41 @@ class SegmentScanner:
                self._plan_sigs[id(mask_fn)])
         gfn = self._fns.get(sig)
         if gfn is None:
-            groups = d.column(group_field).groups
             G = gplan.G
 
             def gfn(margs, gconsts):
-                mask, _, _ = mask_fn(*margs)
-                gids = GB.row_gids(mode_tags, groups, gconsts, d.P, d.W)
-                out = {}
-                for f in agg_fields:
-                    if minmax:
-                        keys = self._decode_rows(f, D.group_decode_keys)
-                        out[f] = GB.group_aggregate(gids, mask, keys, G)
-                    else:
-                        pair = self._decode_rows(f, D.group_decode_halves)
-                        out[f] = GB.group_count_sum(gids, mask, pair, G)
-                return out
+                return self._group_parts(mask_fn(*margs)[0], gconsts,
+                                         mode_tags, G, group_field,
+                                         agg_fields, minmax)
 
             self._fns[sig] = gfn
 
         out = gfn(margs, GB.gid_consts(gplan, d.device))
+        return (gplan, *self._group_collect(gplan, out, agg_fields, minmax))
+
+    def _group_parts(self, mask, gconsts, mode_tags: tuple, G: int,
+                     group_field: str, agg_fields: list[str],
+                     minmax: bool) -> dict:
+        """group_scan's device partials under a mask of this segment:
+        {field: group_aggregate's outputs (minmax) or group_count_sum's}."""
+        from . import groupby as GB
+        gids = self._row_gids(group_field, mode_tags, gconsts)
+        out = {}
+        for f in agg_fields:
+            if minmax:
+                keys = self._decode_rows(f, D.group_decode_keys)
+                out[f] = GB.group_aggregate(gids, mask, keys, G)
+            else:
+                pair = self._decode_rows(f, D.group_decode_halves)
+                out[f] = GB.group_count_sum(gids, mask, pair, G)
+        return out
+
+    @staticmethod
+    def _group_collect(gplan, out: dict, agg_fields: list[str],
+                       minmax: bool):
+        """group_scan's partials on the host: (counts, {field: (sums,
+        min, max)})."""
+        from . import groupby as GB
         results = {}
         counts = None
         for f in agg_fields:
@@ -322,7 +339,7 @@ class SegmentScanner:
             if counts is None:
                 counts = c.cpu().numpy()
             results[f] = (GB.halves_sum(s_lo, s_hi), mn, mx)
-        return gplan, counts, results
+        return counts, results
 
     def series_scan(self, tree: Node | None, time_field: str, kinds: dict,
                     gplan, exclude_words=None):
@@ -353,6 +370,34 @@ class SegmentScanner:
         encoder's round trip bit for bit."""
         from . import groupby as GB
         d = self.d
+        kspec, meta, mplan = self._series_plan(kinds)
+        mask_fn, margs = self.prepare(tree, [], exclude_words)
+        used = sorted(set([time_field] + list(kinds)))
+        mode_tags = tuple(m[0] for m in gplan.mode)
+        sig = ("series", d.sig(used), time_field, kspec, mode_tags,
+               gplan.G, exclude_words is not None, tuple(sorted(mplan)),
+               self._plan_sigs[id(mask_fn)])
+        sfn = self._fns.get(sig)
+        if sfn is None:
+            G = gplan.G
+
+            def sfn(margs, gconsts, mbase):
+                return self._series_parts(mask_fn(*margs)[0], gconsts,
+                                          mode_tags, G, time_field, kspec,
+                                          meta, mbase)
+
+            self._fns[sig] = sfn
+
+        out = sfn(margs, GB.gid_consts(gplan, d.device), mplan)
+        return self._series_collect(out, meta, mplan)
+
+    def _series_plan(self, kinds: dict):
+        """(kspec, meta, mplan) of series_scan: the kinds per field in a
+        fixed order; per field (signed bias, is_float); and the integer
+        fields whose moments take the exact route, with their zone-map
+        minimum."""
+        from . import groupby as GB
+        d = self.d
         fields = sorted(kinds)
         kspec = tuple((f, tuple(sorted(kinds[f]))) for f in fields)
         meta, mplan = {}, {}
@@ -367,58 +412,62 @@ class SegmentScanner:
                 n_chunks, gmin = GB.chunk_plan(d.seg.stats.fields.get(f))
                 if n_chunks <= 4:
                     mplan[f] = gmin
-        mask_fn, margs = self.prepare(tree, [], exclude_words)
-        used = sorted(set([time_field] + fields))
-        mode_tags = tuple(m[0] for m in gplan.mode)
-        sig = ("series", d.sig(used), time_field, kspec, mode_tags,
-               gplan.G, exclude_words is not None, tuple(sorted(mplan)),
-               self._plan_sigs[id(mask_fn)])
-        sfn = self._fns.get(sig)
-        if sfn is None:
-            groups = d.column(time_field).groups
-            G = gplan.G
+        return kspec, meta, mplan
 
-            def sfn(margs, gconsts, mbase):
-                mask, _, _ = mask_fn(*margs)
-                gids = GB.row_gids(mode_tags, groups, gconsts, d.P, d.W)
-                ts_keys = None
-                out = {}
-                for f, fk in kspec:
-                    bias, is_float = meta[f]
-                    if is_float:
-                        vf = self._decode_f64(f)
-                        vk = vf.view(torch.int64)
-                    else:
-                        vf = None
-                        pair = self._decode_rows(f, D.group_decode_halves)
-                        vk = WD.bits_i64(*pair)
-                    if "fminmax" in fk:
-                        c, _lo, _hi, mn, mx = GB.group_aggregate(
-                            gids, mask, self._decode_fkey(f, vf), G)
-                        out[(f, "fminmax")] = (c, mn, mx)
-                    if "moments" in fk and f in mplan:
-                        rlo, rhi = GB._value_halves(pair, mbase[f])
-                        out[(f, "moments")] = GB.group_moments_exact(
-                            gids, mask, (rlo, rhi), GB.square_halves(rlo), G)
-                    elif "moments" in fk:
-                        out[(f, "moments")] = GB.group_moments(
-                            gids, mask, vf if is_float else vk, G, bias,
-                            is_float)
-                    if ts_keys is None and ("firstlast" in fk
-                                            or "tsruns" in fk):
-                        ts_keys = self._decode_rows(time_field,
-                                                    D.group_decode_keys)
-                    if "firstlast" in fk:
-                        out[(f, "firstlast")] = GB.group_first_last(
-                            gids, mask, ts_keys, vk, G)
-                    if "tsruns" in fk:
-                        out[(f, "tsruns")] = GB.group_ts_runs(
-                            gids, mask, ts_keys, vk, G, bias)
-                return out
+    def _series_parts(self, mask, gconsts, mode_tags: tuple, G: int,
+                      time_field: str, kspec, meta: dict,
+                      mplan: dict) -> dict:
+        """series_scan's device partials under a mask of this segment:
+        {(field, kind): tuple of tensors}."""
+        from . import groupby as GB
+        gids = self._row_gids(time_field, mode_tags, gconsts)
+        ts_keys = None
+        out = {}
+        for f, fk in kspec:
+            bias, is_float = meta[f]
+            if is_float:
+                vf = self._decode_f64(f)
+                vk = vf.view(torch.int64)
+            else:
+                vf = None
+                pair = self._decode_rows(f, D.group_decode_halves)
+                vk = WD.bits_i64(*pair)
+            if "fminmax" in fk:
+                c, _lo, _hi, mn, mx = GB.group_aggregate(
+                    gids, mask, self._decode_fkey(f, vf), G)
+                out[(f, "fminmax")] = (c, mn, mx)
+            if "moments" in fk and f in mplan:
+                rlo, rhi = GB._value_halves(pair, mplan[f])
+                out[(f, "moments")] = GB.group_moments_exact(
+                    gids, mask, (rlo, rhi), GB.square_halves(rlo), G)
+            elif "moments" in fk:
+                out[(f, "moments")] = GB.group_moments(
+                    gids, mask, vf if is_float else vk, G, bias, is_float)
+            if ts_keys is None and ("firstlast" in fk or "tsruns" in fk):
+                ts_keys = self._decode_rows(time_field, D.group_decode_keys)
+            if "firstlast" in fk:
+                out[(f, "firstlast")] = GB.group_first_last(
+                    gids, mask, ts_keys, vk, G)
+            if "tsruns" in fk:
+                out[(f, "tsruns")] = GB.group_ts_runs(
+                    gids, mask, ts_keys, vk, G, bias)
+        return out
 
-            self._fns[sig] = sfn
+    @staticmethod
+    def exact_moments(counts: np.ndarray, s_r, s_q, gmin: int, bias: int):
+        """(n, sum, sumsq) of the exact moments route from the counts and
+        the python-int sums of r = key - gmin and of r^2: value = r + base,
+        base = gmin - bias, cast to f64 once."""
+        base = gmin - bias
+        no = counts.astype(object)
+        return (counts, (base * no + s_r).astype(np.float64),
+                (no * (base * base) + (2 * base) * s_r + s_q)
+                .astype(np.float64))
 
-        out = sfn(margs, GB.gid_consts(gplan, d.device), mplan)
+    @classmethod
+    def _series_collect(cls, out: dict, meta: dict, mplan: dict) -> dict:
+        """series_scan's partials on the host, in the documented forms."""
+        from . import groupby as GB
 
         def ordered(t):
             return WD.u64_from_ordered(t.cpu().numpy())
@@ -430,15 +479,9 @@ class SegmentScanner:
         for (f, kind), v in out.items():
             if kind == "moments" and f in mplan:
                 c, sr_lo, sr_hi, sq_lo, sq_hi = v
-                counts = c.cpu().numpy()
-                s_r = GB.halves_sum(sr_lo, sr_hi)
-                s_q = GB.halves_sum(sq_lo, sq_hi)
-                base = mplan[f] - meta[f][0]
-                no = counts.astype(object)
-                res[(f, kind)] = (
-                    counts, (base * no + s_r).astype(np.float64),
-                    (no * (base * base) + (2 * base) * s_r + s_q)
-                    .astype(np.float64))
+                res[(f, kind)] = cls.exact_moments(
+                    c.cpu().numpy(), GB.halves_sum(sr_lo, sr_hi),
+                    GB.halves_sum(sq_lo, sq_hi), mplan[f], meta[f][0])
             elif kind == "moments":
                 res[(f, kind)] = tuple(t.cpu().numpy() for t in v)
             elif kind == "fminmax":
@@ -483,23 +526,27 @@ class SegmentScanner:
             return GB.f64_to_keyform(vf) ^ WD.I64_MIN
         return self._decode_rows(fname, D.group_decode_keys)
 
+    def _over_packs(self, fn, dim: int = 0):
+        """fn(d, lo, hi) -> a tensor or tuple of tensors over packs [lo,
+        hi) of the device segment d, their pack axis at `dim`. Here one
+        call over the whole segment; a sharded scanner calls it once per
+        shard on the shard's own segment and joins the results in pack
+        order (parallel/engine_spmd.py)."""
+        return fn(self.d, 0, self.d.P)
+
     def _decode_rows(self, fname: str, dec):
         """One column decoded over the whole segment: dec(group, W) ->
         tensor or tuple of tensors [Pg, N] per device group, scattered
         into [P, N] where the column has several groups."""
+        return self._over_packs(lambda d, lo, hi: _decode_rows_of(d, fname,
+                                                                  dec))
+
+    def _row_gids(self, field: str, mode_tags: tuple, gconsts):
+        """exec/groupby.row_gids over the whole segment."""
+        from . import groupby as GB
         d = self.d
-        groups = d.column(fname).groups
-        if len(groups) == 1 and groups[0].npacks == d.P:
-            return dec(groups[0], d.W)
-        full = None
-        for g in groups:
-            part = dec(g, d.W)
-            parts = part if isinstance(part, tuple) else (part,)
-            if full is None:
-                full = [p.new_zeros((d.P, d.N)) for p in parts]
-            for f_, p in zip(full, parts):
-                f_[g.idx_t] = p
-        return tuple(full) if isinstance(part, tuple) else full[0]
+        return GB.row_gids(mode_tags, d.column(field).groups, gconsts, d.P,
+                           d.W)
 
     # ---------------------------------------------------------- planning --
 
@@ -964,6 +1011,22 @@ class SegmentScanner:
                 if best is None or (v < best if want_min else v > best):
                     best = v
         return best
+
+
+def _decode_rows_of(d: D.DeviceSegment, fname: str, dec):
+    """SegmentScanner._decode_rows over the device segment d."""
+    groups = d.column(fname).groups
+    if len(groups) == 1 and groups[0].npacks == d.P:
+        return dec(groups[0], d.W)
+    full = None
+    for g in groups:
+        part = dec(g, d.W)
+        parts = part if isinstance(part, tuple) else (part,)
+        if full is None:
+            full = [p.new_zeros((d.P, d.N)) for p in parts]
+        for f_, p in zip(full, parts):
+            f_[g.idx_t] = p
+    return tuple(full) if isinstance(part, tuple) else full[0]
 
 
 def _leaf_cache_key(f: Filter) -> tuple:

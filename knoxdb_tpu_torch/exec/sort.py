@@ -177,6 +177,28 @@ def _topk_fast_plan(d, col, order_field: str):
     return wo, cb, gmin
 
 
+def _abs_planes(scanner, d, order_field: str, cb_np, lo: int, hi: int,
+                wo: int):
+    """The order column's planes over packs [lo, hi) of the device
+    segment d, rebased to width wo by the packs' constant bits
+    cb_np[:, lo:hi] (uploaded once per scanner)."""
+    key = ("topk-cb", order_field, lo)
+    cb = scanner._fns.get(key)
+    if cb is None:
+        cb = WD.to_words(cb_np[:, lo:hi], d.device)
+        scanner._fns[key] = cb
+    groups = d.column(order_field).groups
+    if len(groups) == 1:
+        return B.add_const_planes(groups[0].arrays["planes"], cb, wo)
+    # the groups partition the packs: rebase each group's planes to width
+    # wo, scatter into pack order
+    absp = torch.zeros((wo, d.P, d.W), dtype=torch.int32, device=d.device)
+    for g in groups:
+        absp[:, g.idx_t] = B.add_const_planes(g.arrays["planes"],
+                                              cb[:, g.idx_t], wo)
+    return absp
+
+
 def _topk_bit_descent(scanner, margs, mask_fn, fast, order_field: str,
                       k: int, desc: bool, project: list[str],
                       has_excl: bool):
@@ -195,19 +217,11 @@ def _topk_bit_descent(scanner, margs, mask_fn, fast, order_field: str,
     proj_limbs = [d.seg.columns[nm].nlimbs for nm in project]
     if fn is None:
 
-        def fn(margs, cb, kk: int):
+        def fn(margs, kk: int):
             mask, _, _ = mask_fn(*margs)
-            groups = d.column(order_field).groups
-            if len(groups) == 1:
-                absp = B.add_const_planes(groups[0].arrays["planes"], cb, wo)
-            else:
-                # the groups partition the packs: rebase each group's
-                # planes to width wo, scatter into pack order
-                absp = torch.zeros((wo, d.P, d.W), dtype=torch.int32,
-                                   device=d.device)
-                for g in groups:
-                    absp[:, g.idx_t] = B.add_const_planes(
-                        g.arrays["planes"], cb[:, g.idx_t], wo)
+            absp = scanner._over_packs(
+                lambda dd, lo, hi: _abs_planes(scanner, dd, order_field,
+                                               cb_np, lo, hi, wo), dim=1)
             _tw, better, tie, nb = B.topk_select(absp, mask, kk, wo,
                                                  want_max=desc)
             bi, _bc = CP.first_k_indexes(better, kcap)
@@ -227,12 +241,7 @@ def _topk_bit_descent(scanner, margs, mask_fn, fast, order_field: str,
 
         scanner._fns[sig] = fn
 
-    cb_key = ("topk-cb", order_field)
-    cb_dev = scanner._fns.get(cb_key)      # cache the upload
-    if cb_dev is None:
-        cb_dev = WD.to_words(cb_np, d.device)
-        scanner._fns[cb_key] = cb_dev
-    buf = WD.from_words(fn(margs, cb_dev, k))
+    buf = WD.from_words(fn(margs, k))
     K2 = 2 * kcap
     sel = buf[:K2] != 0
     idx_np = buf[K2:2 * K2].astype(np.int64)

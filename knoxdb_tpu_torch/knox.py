@@ -653,8 +653,19 @@ def join(left: "Query", right: "Query", on: tuple[str, str],
     # and never qualify) — drops the hi-limb sort operand on every core
     k32 = (not lft.is_signed and not rft.is_signed
            and lft.bits <= 32 and rft.bits <= 32)
-    lidx, ridx = J.join_pairs_device(lkeys, rkeys, how,
-                                     unique_build=unique, keys32=k32)
+    mesh = lt.engine.mesh
+    if mesh is not None and rt.engine.mesh is mesh:
+        # distributed path: the salted all-to-all shuffle over the mesh,
+        # then the same unique -> shift -> general core ladder per shard;
+        # pairs index the key arrays as the single-device cores' do
+        from .parallel.shuffle import shuffle_join_rows
+        lidx, ridx, _stats = shuffle_join_rows(
+            mesh, lkeys, rkeys,
+            how="left" if how == JoinType.LEFT else "inner",
+            axis=mesh.axis_names[0], unique_build=unique, keys32=k32)
+    else:
+        lidx, ridx = J.join_pairs_device(lkeys, rkeys, how,
+                                         unique_build=unique, keys32=k32)
 
     # pair indexes -> row positions: one take on the positions' device
     # per side, one copy of the result to the host

@@ -164,18 +164,26 @@ def _limbs_to_ints(limbs: np.ndarray) -> np.ndarray:
 
 
 def build_segment(schema: Schema, data: dict[str, np.ndarray],
-                  pack_size: int, epoch: int = 0) -> Segment:
+                  pack_size: int, epoch: int = 0,
+                  uniform: int | None = None) -> Segment:
     """data: field name -> native-typed numpy array (or python-int list for
     wide types). All columns must share length. Rows are stored in input
-    order (the table engine sorts by pk before building). The reference's
-    shard-uniform option waits for the parallel slice (ROADMAP.md queue 1
-    item 11)."""
+    order (the table engine sorts by pk before building).
+
+    uniform=N builds a SHARD-UNIFORM segment for N-shard execution
+    (parallel/engine_spmd.py): the pack count padded to a multiple of N
+    with empty packs, and every column encoded as exactly ONE (scheme,
+    width, k) group, so every shard runs the same plan on its pack
+    range."""
     if pack_size < 32 or pack_size & (pack_size - 1):
         raise ValueError(f"pack_size must be a power of two >= 32, "
                          f"got {pack_size}")
     names = [f.name for f in schema.fields]
     n = len(data[names[0]])
     bounds = _split(n, pack_size)
+    if uniform:
+        P0 = len(bounds)
+        bounds = bounds + [(n, n)] * (-(-P0 // uniform) * uniform - P0)
     P = len(bounds)
     nrows = np.array([hi - lo for lo, hi in bounds], np.int64)
 
@@ -186,15 +194,18 @@ def build_segment(schema: Schema, data: dict[str, np.ndarray],
         if f.type.is_bytes_like:
             columns[f.name], fstats[f.name] = _encode_strings(
                 f, raw, bounds, pack_size)
+            if uniform:
+                _uniform_strings(columns[f.name])
             continue
         wide = f.type.nlimbs > 2
         if wide:
             limbs = lb.to_keyform(raw, f.type)
-            col, keys = _encode_wide(f, limbs, bounds, pack_size)
+            enc = _encode_wide_uniform if uniform else _encode_wide
+            col, keys = enc(f, limbs, bounds, pack_size)
         else:
             keys64 = lb.to_keys64(raw, f.type)
-            col, keys = _encode_narrow(f, keys64, bounds, pack_size,
-                                       raw=raw)
+            enc = _encode_narrow_uniform if uniform else _encode_narrow
+            col, keys = enc(f, keys64, bounds, pack_size, raw=raw)
         columns[f.name] = col
         limbs_per_pack = None
         if f.filter != FilterType.NONE:
@@ -206,6 +217,101 @@ def build_segment(schema: Schema, data: dict[str, np.ndarray],
     rid_base = np.arange(P, dtype=np.uint64) * np.uint64(pack_size)
     stats = SegmentStats(nrows, rid_base, fstats)
     return Segment(schema, pack_size, n, nrows, columns, stats, epoch)
+
+
+# ----------------------------------------------------- uniform encoders ---
+# One (scheme, width, k) group per column: the shard layout contract.
+
+def _pad_planes(p: EncodedPack, width: int) -> None:
+    """Grow a bitplane pack to `width` by appending zero planes (the high
+    bits of in-domain values are zero, so match and sum are unchanged)."""
+    if p.width >= width:
+        return
+    W = p.planes.shape[1]
+    out = np.zeros((max(width, 1), W), np.uint32)
+    if p.width:
+        out[:p.width] = p.planes[:p.width]
+    p.planes = out
+    p.width = width
+
+
+def _uniform_strings(col: EncodedColumn) -> None:
+    wmax = max(p.width for p in col.packs)
+    kmax = max(p.k for p in col.packs)
+    for p in col.packs:
+        _pad_planes(p, wmax)
+        p.k = kmax
+
+
+def _encode_narrow_uniform(field: Field, keys64: np.ndarray, bounds,
+                           pack_size: int, raw=None):
+    """Every pack ALP at the widest pack's width when every non-empty pack
+    of a FLOAT64 column takes ALP (an empty pad pack is ALP of width 0,
+    compatible with any exponent); else BITPACK at one width over each
+    pack's own minimum."""
+    L = field.type.nlimbs
+    per_pack_keys = [keys64[lo:hi] for lo, hi in bounds]
+    if field.type == FieldType.FLOAT64 and raw is not None:
+        packs = []
+        for lo, hi in bounds:
+            if lo == hi:
+                packs.append(EncodedPack(Scheme.ALP, 0, 2, width=0,
+                                         min_key=0, exp=0,
+                                         planes=np.zeros(
+                                             (1, pack_size // 32), np.uint32)))
+                continue
+            p = S.encode_alp(np.asarray(raw[lo:hi], np.float64), pack_size,
+                             width_round=sel.round_width)
+            if p is None:
+                break
+            packs.append(p)
+        else:
+            wmax = max(p.width for p in packs)
+            for p in packs:
+                _pad_planes(p, wmax)
+            return EncodedColumn(field, packs, wide=False), per_pack_keys
+    mins, rngs = [], []
+    for k in per_pack_keys:
+        mn = int(k.min()) if len(k) else 0
+        mins.append(mn)
+        rngs.append((int(k.max()) - mn) if len(k) else 0)
+    gw = sel.round_width(max(rngs).bit_length()) if max(rngs) else 0
+    packs = [S.encode_bitpack(k, L, mn, gw, pack_size)
+             for k, mn in zip(per_pack_keys, mins)]
+    return EncodedColumn(field, packs, wide=False), per_pack_keys
+
+
+def _encode_wide_uniform(field: Field, limbs: np.ndarray, bounds,
+                         pack_size: int):
+    """Every pack BITPACK (relative to its python-int minimum) at one
+    width when every pack's range fits 63 bits, else every pack RAW."""
+    L = limbs.shape[0]
+    per_pack, infos = [], []
+    for lo, hi in bounds:
+        sub = limbs[:, lo:hi]
+        ints = _limbs_to_ints(sub)
+        per_pack.append(ints)
+        if len(ints):
+            mn = min(int(v) for v in ints)
+            mx = max(int(v) for v in ints)
+        else:
+            mn = mx = 0
+        infos.append((mn, mx - mn, sub))
+    if all(rng < (1 << 63) for _, rng, _ in infos):
+        gw = sel.round_width(
+            max(rng.bit_length() for _, rng, _ in infos)) \
+            if any(rng for _, rng, _ in infos) else 0
+        packs, bases = [], []
+        for (mn, rng, sub), ints in zip(infos, per_pack):
+            rel = np.array([int(v) - mn for v in ints], dtype=np.uint64)
+            packs.append(S.encode_bitpack(rel, L, 0, gw, pack_size))
+            bases.append(mn)
+        return EncodedColumn(field, packs, wide=True,
+                             wide_bases=bases), per_pack
+    packs = [S.encode_raw(sub, sub.shape[1], pack_size)
+             for _, _, sub in infos]
+    return EncodedColumn(field, packs, wide=True,
+                         wide_bases=[0] * len(infos)), per_pack
 
 
 # --------------------------------------------------- reference segments ---

@@ -26,7 +26,10 @@ def test_port_imports_no_jax():
         "          'knox', 'utils.csvio', 'filter.llb', 'encode.fsst',\n"
         "          'testing.assert_', 'testing.scenario',\n"
         "          'testing.kernel_cases', 'tools.kx', 'tools.packview',\n"
-        "          'tools.walview'):\n"
+        "          'tools.walview', 'parallel', 'parallel.mesh',\n"
+        "          'parallel.shard', 'parallel.engine_spmd',\n"
+        "          'parallel.shuffle', 'parallel.multihost',\n"
+        "          'testing.dryrun'):\n"
         "    assert 'knoxdb_tpu_torch.' + m in mods, mods\n"
         "assert 'jax' not in sys.modules and 'knoxdb_tpu' not in sys.modules\n"
         "assert 'torch' in sys.modules\n"

@@ -108,13 +108,17 @@ class Pair:
     root/port."""
 
     def __init__(self, root: Path, name: str, cols, *, table: str = "t",
-                 history: bool = False, table_kw=None, **opts):
+                 history: bool = False, table_kw=None, side_opts=None,
+                 **opts):
         self.root = Path(root)
         self.name = name
         self.tname = table
         self.opts = dict(driver="file", pack_size=256, journal_size=1 << 20,
                          background_merge=False)
         self.opts.update(opts)
+        # options of one side only, e.g. {"ref": {"mesh": m1}, "port":
+        # {"mesh": m2}}
+        self.side_opts = side_opts or {}
         self._open()
         for side in SIDES:
             self.tab[side] = self.eng[side].create_table(
@@ -125,7 +129,8 @@ class Pair:
         self.eng, self.tab = {}, {}
         for side in SIDES:
             E = PKG[side][0]
-            kw = dict(self.opts, path=str(self.root / side))
+            kw = dict(self.opts, path=str(self.root / side),
+                      **self.side_opts.get(side, {}))
             if side == "port":
                 kw["device"] = "cpu"
             self.eng[side] = E.Engine(self.name, E.Options(**kw))
